@@ -1,0 +1,96 @@
+# -*- coding: utf-8 -*-
+"""Device half of the FFT alignment search, in PyTorch.
+
+Counterpart of ``ffsubsync_tpu/ops/align_device.py``: rasterize every
+candidate's cue intervals on the device, score all candidates with one
+batched real-FFT cross-correlation, pick each one's best allowed offset
+(first maximum over *descending* offsets, the reference's tie-break) and
+re-score that offset with an exact dot product.
+"""
+import numpy as np
+import torch
+
+from ffsubsync_tpu.subs.raster import RasterSpec
+
+
+def _pm_raster(starts, ends, weights, n_samples, n: int) -> torch.Tensor:
+    """Cue intervals ``[K, C]`` -> ±1-mapped signals ``[K, n]`` float32.
+
+    Padding cues are (0, 0) intervals whose +1/-1 contributions cancel.
+    Values: ``2·w - 1`` on covered samples, ``-1`` on uncovered samples
+    inside the signal's true length, ``0`` beyond it (the FFT zero pad).
+    """
+    k = starts.shape[0]
+    dev = starts.device
+    row = torch.arange(k, device=dev)[:, None] * (n + 1)
+    diff = torch.zeros(k * (n + 1), dtype=torch.int32, device=dev)
+    ones = torch.ones(starts.numel(), dtype=torch.int32, device=dev)
+    diff.index_add_(0, (row + starts).reshape(-1), ones)
+    diff.index_add_(0, (row + ends).reshape(-1), -ones)
+    count = torch.cumsum(diff.reshape(k, n + 1), dim=1)[:, :n]
+    raw = torch.where(count > 0, weights[:, None], 0.0)
+    t = torch.arange(n, device=dev)[None, :]
+    return torch.where(t < n_samples[:, None], 2.0 * raw - 1.0, 0.0)
+
+
+def align_specs(ref_pm, starts, ends, weights, n_samples, start_offs, cnts,
+                n: int, n_offsets: int):
+    """Batched rasterize + FFT cross-correlate + masked argmax + exact
+    rescore (``ffsubsync_tpu/ops/align_device.py::_align_specs_kernel``).
+
+    Args:
+      ref_pm: f32[n] ±1-mapped reference (zeros beyond its true length).
+      starts, ends: int64[K, C] candidate cue intervals (padded with (0, 0)).
+      weights: f32[K] per-candidate written value ``min(1/ratio, 1)``.
+      n_samples: int64[K] per-candidate true signal length.
+      start_offs: int64[K] largest allowed offset per candidate.
+      cnts: int64[K] number of allowed offsets (descending from start_offs).
+    Returns:
+      (scores f32[K], offsets int64[K]) on the device.
+    """
+    subs_pm = _pm_raster(starts, ends, weights, n_samples, n)
+    ref_f = torch.fft.rfft(ref_pm)
+    sub_f = torch.fft.rfft(subs_pm, dim=-1)
+    # c2[k, m] = sum_s subs_pm[k, s] * ref_pm[(s + m) mod n]
+    c2 = torch.fft.irfft(torch.conj(sub_f) * ref_f[None, :], n=n, dim=-1)
+    j = torch.arange(n_offsets, device=ref_pm.device)[None, :]
+    offs = start_offs[:, None] - j
+    gathered = torch.gather(c2, 1, torch.remainder(offs, n))
+    gathered = torch.where(j < cnts[:, None], gathered, float("-inf"))
+    best_j = torch.argmax(gathered, dim=-1)  # first maximum
+    best_off = torch.gather(offs, 1, best_j[:, None])[:, 0]
+    scores = torch.stack(
+        [
+            torch.dot(subs_pm[i], torch.roll(ref_pm, -off))
+            for i, off in enumerate(best_off.tolist())
+        ]
+    )
+    return scores, best_off
+
+
+def _pm_from_signal(values, length: int, n: int) -> torch.Tensor:
+    """±1-map a materialized signal of true length ``length`` (f32 [n])."""
+    t = torch.arange(n, device=values.device)
+    return torch.where(t < length, 2.0 * values.to(torch.float32) - 1.0, 0.0)
+
+
+def prepare_ref_pm(ref, n: int, device: torch.device) -> torch.Tensor:
+    """The ±1 reference signal of FFT length *n* on the device."""
+    if hasattr(ref, "padded_values"):  # LazySpeechSignal: already there
+        return _pm_from_signal(ref.padded_values(n), len(ref), n)
+    if isinstance(ref, RasterSpec):
+        c = max(1, len(ref.starts))
+        starts = np.zeros((1, c), np.int64)
+        ends = np.zeros((1, c), np.int64)
+        starts[0, : len(ref.starts)] = ref.starts
+        ends[0, : len(ref.ends)] = ref.ends
+        return _pm_raster(
+            torch.from_numpy(starts).to(device),
+            torch.from_numpy(ends).to(device),
+            torch.tensor([ref.weight], dtype=torch.float32, device=device),
+            torch.tensor([ref.n_samples], device=device),
+            n,
+        )[0]
+    values = np.zeros(n, np.float32)
+    values[: len(ref)] = ref
+    return _pm_from_signal(torch.from_numpy(values).to(device), len(ref), n)

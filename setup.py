@@ -27,6 +27,8 @@ setup(
         # analysis rate); without these --vad silero/fused degrades to a
         # random-init net with only a log warning
         "ffsubsync_tpu": ["models/weights/*.npz"],
+        # the PyTorch port's CUDA kernels are built from source at first use
+        "ffsubsync_tpu_torch": ["csrc/*.cu"],
     },
     # 3.10 floor: jax releases with the top-level jax.shard_map API used by
     # ffsubsync_tpu/parallel require >=3.10 (jax dropped 3.9 earlier)
@@ -48,6 +50,7 @@ setup(
             "ffsubsync=ffsubsync_tpu.sync:main",
             "ffs-tpu=ffsubsync_tpu.sync:main",  # Docker/docs entry name
             "ffs-tpu-batch=ffsubsync_tpu.batch:main",
+            "ffs-torch=ffsubsync_tpu_torch.sync:main",  # PyTorch/CUDA port
         ],
     },
     zip_safe=False,

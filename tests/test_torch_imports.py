@@ -1,0 +1,125 @@
+# -*- coding: utf-8 -*-
+"""ffsubsync_tpu_torch never imports jax, and never falls back silently from
+the device it was asked for."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "ffsubsync_tpu_torch")
+
+torch.set_num_threads(1)
+
+_NO_JAX_SYNC = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import ffsubsync_tpu_torch
+from ffsubsync_tpu_torch import make_parser, run
+from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
+from ffsubsync_tpu.utils.fixtures import write_wav_i16
+
+
+def stamp(t):
+    return "00:00:%06.3f" % t
+
+
+spans = [(2.0, 4.5), (6.0, 8.0), (10.5, 13.0), (15.0, 17.5)]
+with tempfile.TemporaryDirectory() as d:
+    wav = os.path.join(d, "ref.wav")
+    write_wav_i16(wav, speech_signal_for_spans(20.0, spans, 12000, speech_level=0.35), 12000)
+    srt = os.path.join(d, "in.srt")
+    with open(srt, "w") as f:
+        for i, (a, b) in enumerate(spans):  # cues 1.25 s early
+            f.write("%d\n%s --> %s\nx\n\n"
+                    % (i + 1, stamp(a - 1.25).replace(".", ","), stamp(b - 1.25).replace(".", ",")))
+    result = run(make_parser().parse_args(
+        [wav, "-i", srt, "-o", os.path.join(d, "out.srt"), "--vad", "fused"]))
+assert result["sync_was_successful"], result
+assert abs(result["offset_seconds"] - 1.25) < 0.15, result
+loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] == "jax"]
+assert not loaded, loaded
+print("NO_JAX_SYNC_OK", result["offset_seconds"])
+"""
+
+
+def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
+    env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SYNC], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_SYNC_OK" in proc.stdout
+
+
+def test_module_cli_entry_runs_with_jax_blocked(tmp_path):
+    """``python -m ffsubsync_tpu_torch`` (an srt reference: host only)."""
+    srt = "1\n00:00:05,000 --> 00:00:07,500\nHello.\n\n2\n00:00:12,250 --> 00:00:15,000\nThere.\n\n"
+    late = srt.replace("00:00:05,000", "00:00:06,000").replace("00:00:07,500", "00:00:08,500")
+    late = late.replace("00:00:12,250", "00:00:13,250").replace("00:00:15,000", "00:00:16,000")
+    (tmp_path / "ref.srt").write_text(srt)
+    (tmp_path / "in.srt").write_text(late)
+    script = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['ffs-torch', 'ref.srt', '-i', 'in.srt', '-o', 'out.srt']\n"
+        "runpy.run_module('ffsubsync_tpu_torch', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "00:00:05,000 --> 00:00:07,500" in (tmp_path / "out.srt").read_text()
+
+
+def test_no_source_file_imports_jax():
+    for root, _dirs, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    for line in f:
+                        words = line.split()
+                        assert words[:2] not in (["import", "jax"], ["from", "jax"]), (
+                            name, line
+                        )
+                        assert not line.lstrip().startswith(("import jax.", "from jax.")), (
+                            name, line
+                        )
+
+
+def test_cuda_requested_without_a_card_raises(monkeypatch, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from ffsubsync_tpu.cli import make_parser
+    from ffsubsync_tpu.utils.fixtures import write_wav_i16
+    from ffsubsync_tpu_torch.device import get_device
+    from ffsubsync_tpu_torch.sync import run
+
+    monkeypatch.setenv("FFS_TORCH_DEVICE", "cuda")
+    with pytest.raises(RuntimeError, match="FFS_TORCH_DEVICE=cuda"):
+        get_device()
+    monkeypatch.delenv("FFS_TORCH_DEVICE")  # cuda is the default
+    with pytest.raises(RuntimeError, match="is_available"):
+        get_device()
+    wav = str(tmp_path / "ref.wav")
+    write_wav_i16(wav, [0.0] * 12000, 12000)
+    srt = tmp_path / "in.srt"
+    srt.write_text("1\n00:00:00,100 --> 00:00:00,500\nx\n\n")
+    with pytest.raises(RuntimeError, match="FFS_TORCH_DEVICE"):
+        run(make_parser().parse_args([wav, "-i", str(srt), "-o", str(tmp_path / "o.srt")]))
+
+
+def test_unknown_device_name_raises(monkeypatch):
+    from ffsubsync_tpu_torch.device import get_device
+
+    monkeypatch.setenv("FFS_TORCH_DEVICE", "tpu")
+    with pytest.raises(ValueError, match="cuda, cpu"):
+        get_device()
+    monkeypatch.setenv("FFS_TORCH_DEVICE", "cpu")
+    assert get_device() == torch.device("cpu")
