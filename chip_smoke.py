@@ -20,16 +20,34 @@ needs no network and no jax. Phases, each fatal on failure:
    with the default VAD; the shift must be recovered within 0.15 s, the
    kernel must have run once per dispatched chunk, and the labels must
    reach the aligner as CUDA tensors;
-5. fused labels of 10 minutes of that audio, card against CPU.
+5. fused labels of 10 minutes of that audio, card against CPU;
+6. ``--vad auditok`` on the same WAV through the CLI: one frontend launch
+   for the whole signal, the shift within 0.15 s, and the card's labels
+   and offset held against the port's CPU run of the same sync; the
+   kernel held against its plain version at that launch's own shape, the
+   whole 90 minutes staged as the auditok detector stages them;
+7. ``--multi-segment-sync --vad fused`` on the same WAV (8 segments of
+   60 s, 4 threads): one frontend launch per segment, shift within 0.15 s;
+   the kernel held against its plain version on one segment's own input;
+8. batch sync (``ffsubsync_tpu_torch.batch.sync_batch``, ``--vad fused``)
+   of 10 jobs of 44 minutes (from the WAV's two halves, each job with its
+   own shift; shorter than one pipeline chunk, as most episodes are): 10
+   frontend launches, every shift within 0.15 s, every reference at the
+   batched search as CUDA labels, and the batched search equal to one
+   search per job.
 
-The last two lines of standard output are one JSON object describing the
-kernels and one JSON object ``{"ok": true, "device": {...}}``.
+Every path is driven with the kernel's launch count set to 0 just before
+and read just after. The last two lines of standard output are one JSON
+object describing the kernels and one JSON object ``{"ok": true,
+"device": {...}}``.
 
 ``--measure`` runs phases 1 and 2, synthesizes the same WAV, and then
-prints what PERF.md cites: the wall seconds of repeated 90-minute syncs
-(fused and default VAD), a per-layer breakdown of one warm sync of each,
-the device milliseconds of one ``_vad_program`` per mode on a 45-minute
-chunk, and a ``torch.profiler`` table of one warm fused sync.
+prints what PERF.md cites: the wall seconds of repeated syncs of every
+path (the 90-minute fused, default, auditok and multi-segment syncs, and
+the 10-job batch), a per-layer breakdown of one warm fused and default
+sync, the share of a warm batch spent in the batched search, the device
+milliseconds of one ``_vad_program`` per mode on a 45-minute chunk, and a
+``torch.profiler`` table of one warm fused sync.
 """
 import argparse
 import json
@@ -45,6 +63,11 @@ RATE = 12000  # the analysis tier a 48 kHz decode is decimated to
 SAMPLE_RATE = 100
 CHUNK_SECONDS = 2700  # the port's default pipeline chunk (45 min)
 LABEL_MINUTES = 10
+SEGMENTS = 8  # --multi-segment-sync's default count (60 s each)
+EPISODE_SECONDS = 2640  # a batch job: 44 min, shorter than one chunk
+# batch jobs: (half of the 90-min WAV, true shift in seconds)
+BATCH_JOBS = [(i % 2, shift) for i, shift in enumerate(
+    (-4.1, -2.6, 0.9, 2.3, 3.7, 5.05, 6.4, 7.8, -1.15, 4.55))]
 # reference tolerances (tests/test_pallas_frontend.py): (rtol, atol)
 TOLS = {"logmel": (2e-3, 2e-3), "bands": (2e-3, 1e-5), "total": (1e-4, 0.0)}
 
@@ -214,7 +237,7 @@ def _srt(spans, shift):
 
 def synthesize(workdir):
     """The 90-minute 12 kHz speech WAV, its truth .srt and a copy shifted
-    by ``TRUE_OFFSET_S``. Returns (wav path, int16 PCM)."""
+    by ``TRUE_OFFSET_S``. Returns (wav path, int16 PCM, truth spans)."""
     import numpy as np
 
     from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
@@ -239,11 +262,16 @@ def synthesize(workdir):
             f.write(_srt(spans, shift))
     log("synthesized %d min at %d Hz (%d spans) in %.1f s"
         % (MINUTES, RATE, len(spans), time.perf_counter() - t0))
-    return wav_path, pcm
+    return wav_path, pcm, spans
 
 
 def _sync_argv(workdir, wav_path, label):
-    vad_args = {"fused": ["--vad", "fused"], "default": []}[label]
+    vad_args = {
+        "fused": ["--vad", "fused"],
+        "default": [],
+        "auditok": ["--vad", "auditok"],
+        "multiseg": ["--multi-segment-sync", "--vad", "fused"],
+    }[label]
     return [wav_path, "-i", os.path.join(workdir, "in.srt"),
             "-o", os.path.join(workdir, "out_%s.srt" % label)] + vad_args
 
@@ -274,54 +302,279 @@ def _check_result(label, result):
     return err
 
 
-def main_path(workdir, wav_path):
-    """Phase 4. Returns {label: (frontend launches, wall s, offset error)}."""
-    from ffsubsync_tpu_torch import sync
-    from ffsubsync_tpu_torch.ops import frontend as fe
-    from ffsubsync_tpu_torch.ops import vad
+class Instruments:
+    """What one driven path did. On entry the kernel's launch count is set
+    to 0 and wrappers start to record each ``_vad_program`` call (and the
+    first one's staged input, ``first_input``) and what the single and
+    batched searches received and returned; on exit the count is read
+    (``launches``) and the wrappers are removed."""
+
+    def __enter__(self):
+        from ffsubsync_tpu_torch import sync
+        from ffsubsync_tpu_torch.ops import frontend as fe
+        from ffsubsync_tpu_torch.ops import vad
+        from ffsubsync_tpu_torch.parallel.batch import BatchAligner
+
+        self.programs, self.searches, self.batches = [], [], []
+        self.first_input = None
+        self._real = (vad._vad_program, sync.align_candidates, BatchAligner.align_batch)
+        real_program, real_align, real_batch = self._real
+
+        def program(*args, **kwargs):
+            if not self.programs:
+                self.first_input = args[:3]  # (framed, window, frame_rate)
+            self.programs.append(1)
+            return real_program(*args, **kwargs)
+
+        def align(ref, candidates, *args, **kwargs):
+            out = real_align(ref, candidates, *args, **kwargs)
+            self.searches.append((ref, list(candidates), out))
+            return out
+
+        def batch(aligner, refs, candidates, **kwargs):
+            out = real_batch(aligner, refs, candidates, **kwargs)
+            self.batches.append((list(refs), [list(c) for c in candidates], kwargs, out))
+            return out
+
+        vad._vad_program, sync.align_candidates, BatchAligner.align_batch = program, align, batch
+        fe.fused_frontend.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from ffsubsync_tpu_torch import sync
+        from ffsubsync_tpu_torch.ops import frontend as fe
+        from ffsubsync_tpu_torch.ops import vad
+        from ffsubsync_tpu_torch.parallel.batch import BatchAligner
+
+        self.launches = fe.fused_frontend.launches
+        vad._vad_program, sync.align_candidates, BatchAligner.align_batch = self._real
+        return False
+
+
+def _on_card(refs, what):
     from ffsubsync_tpu_torch.ops.vad import LazySpeechSignal
 
-    # instruments: chunks the detector dispatched, and what the aligner got
-    dispatched = []
-    seen_refs = []
-    real_program = vad._vad_program
-    real_align = sync.align_candidates
+    if not refs or not all(
+        isinstance(r, LazySpeechSignal) and r.device.type == "cuda" for r in refs
+    ):
+        fail("%s: labels did not reach the aligner as CUDA tensors: %r"
+             % (what, [type(r).__name__ for r in refs]))
 
-    def counting_program(*args, **kwargs):
-        dispatched.append(1)
-        return real_program(*args, **kwargs)
 
-    def recording_align(ref, *args, **kwargs):
-        seen_refs.append(ref)
-        return real_align(ref, *args, **kwargs)
-
-    vad._vad_program = counting_program
-    sync.align_candidates = recording_align
+def main_path(workdir, wav_path):
+    """Phase 4. Returns {label: (frontend launches, wall s, offset error)}."""
     results = {}
-    try:
-        for label in ("fused", "default"):
-            dispatched.clear()
-            seen_refs.clear()
-            fe.fused_frontend.launches = 0
+    for label in ("fused", "default"):
+        with Instruments() as ins:
             result, wall = _timed_sync(workdir, wav_path, label)
-            launches = fe.fused_frontend.launches
-            log("%s sync: %.3f s wall, result %s, frontend launches %d, chunks "
-                "dispatched %d" % (label, wall, result, launches, len(dispatched)))
-            err = _check_result(label, result)
-            if launches == 0 or launches != len(dispatched):
-                fail("%s: %d frontend kernel launches for %d dispatched chunks"
-                     % (label, launches, len(dispatched)))
-            if not seen_refs or not all(
-                isinstance(r, LazySpeechSignal) and r.device.type == "cuda"
-                for r in seen_refs
-            ):
-                fail("%s: labels did not reach the aligner as CUDA tensors: %r"
-                     % (label, [type(r).__name__ for r in seen_refs]))
-            results[label] = (launches, wall, err)
-    finally:
-        vad._vad_program = real_program
-        sync.align_candidates = real_align
+        log("%s sync: %.3f s wall, result %s, frontend launches %d, chunks "
+            "dispatched %d" % (label, wall, result, ins.launches, len(ins.programs)))
+        err = _check_result(label, result)
+        if ins.launches == 0 or ins.launches != len(ins.programs):
+            fail("%s: %d frontend kernel launches for %d dispatched chunks"
+                 % (label, ins.launches, len(ins.programs)))
+        _on_card([ref for ref, _c, _o in ins.searches], label)
+        results[label] = (ins.launches, wall, err)
     return results
+
+
+def _exact_score(labels, spec, offset):
+    """The search's score of one (candidate, offset), in float64 on the host."""
+    import numpy as np
+
+    from ffsubsync_tpu.ops.align import next_pow2
+
+    n = next_pow2(len(labels) + spec.n_samples)
+    ref = np.zeros(n)
+    ref[: len(labels)] = 2.0 * np.asarray(labels, np.float64) - 1.0
+    sub = np.zeros(n)
+    sub[: spec.n_samples] = 2.0 * spec.materialize() - 1.0
+    return float(np.dot(sub, np.roll(ref, -offset)))
+
+
+def _pick(search):
+    """The (candidate, alignment) a one-search sync chose."""
+    _ref, candidates, out = search
+    best = max(range(len(out)), key=lambda i: out[i].score)
+    return candidates[best], out[best]
+
+
+def auditok_phase(workdir, wav_path, pcm, dev):
+    """Phase 6. Returns (launches, wall s, offset error, label agreement,
+    kernel-vs-plain abs errors at the launch's own shape)."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.ops.features import prepare_staged_input
+
+    with Instruments() as ins:
+        result, wall = _timed_sync(workdir, wav_path, "auditok")
+    log("auditok sync: %.3f s wall, result %s, frontend launches %d"
+        % (wall, result, ins.launches))
+    err = _check_result("auditok", result)
+    if ins.launches != 1:
+        fail("auditok: %d frontend kernel launches for the whole signal, not 1" % ins.launches)
+    _on_card([ref for ref, _c, _o in ins.searches], "auditok")
+    # the same sync by the port on the CPU (frontend_plain, host tokenizer)
+    chosen = os.environ.get("FFS_TORCH_DEVICE")
+    os.environ["FFS_TORCH_DEVICE"] = "cpu"
+    try:
+        with Instruments() as cpu:
+            cpu_result, cpu_wall = _timed_sync(workdir, wav_path, "auditok")
+    finally:
+        if chosen is None:
+            del os.environ["FFS_TORCH_DEVICE"]
+        else:
+            os.environ["FFS_TORCH_DEVICE"] = chosen
+    card_labels = np.asarray(ins.searches[0][0])
+    cpu_labels = np.asarray(cpu.searches[0][0])
+    if card_labels.shape != (MINUTES * 60 * SAMPLE_RATE,) or card_labels.shape != cpu_labels.shape:
+        fail("auditok label shapes %r (card) vs %r (CPU)" % (card_labels.shape, cpu_labels.shape))
+    close = np.abs(card_labels - cpu_labels) < 0.05
+    head = LABEL_MINUTES * 60 * SAMPLE_RATE
+    log("auditok labels card vs CPU: %.6f of %d windows within 0.05 (first %d min "
+        "%.6f); CPU sync %.3f s wall, result %s"
+        % (close.mean(), len(close), LABEL_MINUTES, close[:head].mean(), cpu_wall, cpu_result))
+    if close[:head].mean() < 0.995 or close.mean() < 0.995:
+        fail("auditok card and CPU labels agree on only %.4f of windows" % close.mean())
+    if cpu_result["framerate_scale_factor"] != result["framerate_scale_factor"]:
+        fail("auditok scale %r on the card, %r on the CPU"
+             % (result["framerate_scale_factor"], cpu_result["framerate_scale_factor"]))
+    if cpu_result["offset_seconds"] != result["offset_seconds"]:
+        # hard 0/1 labels can leave exact ties, whose pick float32 FFT
+        # rounding decides (ROADMAP C4): accept only an exact tie
+        scores = []
+        for search in (ins.searches[0], cpu.searches[0]):
+            spec, alignment = _pick(search)
+            scores.append(_exact_score(card_labels, spec, alignment.offset))
+        log("auditok offsets differ (card %r, CPU %r); exact scores %r"
+            % (result["offset_seconds"], cpu_result["offset_seconds"], scores))
+        if scores[0] != scores[1]:
+            fail("auditok offset differs from the CPU port's and is no exact tie")
+    # the one launch's input: the whole signal, staged as compute_frontend
+    # stages it for the auditok detector
+    framed, rate, window, n_windows = prepare_staged_input(pcm, RATE, SAMPLE_RATE)
+    if n_windows != MINUTES * 60 * SAMPLE_RATE:
+        fail("auditok: the whole signal staged as %d windows" % n_windows)
+    x = torch.from_numpy(framed).to(dev)
+    got = fe.fused_frontend(x, window, rate)
+    torch.cuda.synchronize()
+    errs = compare(got, fe.frontend_plain(x, window, rate),
+                   "auditok whole signal [%d, %d] %s" % (x.shape[0], x.shape[1],
+                                                         str(x.dtype).replace("torch.", "")))
+    return ins.launches, wall, err, float(close.mean()), errs
+
+
+def multiseg_phase(workdir, wav_path):
+    """Phase 7. Returns (launches, wall s, offset error, kernel-vs-plain abs
+    errors on the first dispatched segment's own input)."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops import frontend as fe
+
+    with Instruments() as ins:
+        result, wall = _timed_sync(workdir, wav_path, "multiseg")
+    log("multi-segment sync: %.3f s wall, result %s, frontend launches %d, "
+        "segments dispatched %d" % (wall, result, ins.launches, len(ins.programs)))
+    err = _check_result("multi-segment", result)
+    if ins.launches != SEGMENTS or len(ins.programs) != SEGMENTS:
+        fail("multi-segment: %d frontend launches for %d dispatched segments (want %d)"
+             % (ins.launches, len(ins.programs), SEGMENTS))
+    x, window, rate = ins.first_input
+    if x.device.type != "cuda" or x.shape[0] != 60 * SAMPLE_RATE:
+        fail("multi-segment: a segment staged as %r on %s" % (tuple(x.shape), x.device))
+    got = fe.fused_frontend(x, window, rate)
+    torch.cuda.synchronize()
+    errs = compare(got, fe.frontend_plain(x, window, rate),
+                   "60 s segment [%d, %d] %s" % (x.shape[0], x.shape[1],
+                                                 str(x.dtype).replace("torch.", "")))
+    return ins.launches, wall, err, errs
+
+
+def make_batch_jobs(workdir, pcm, spans):
+    """Two 44-minute WAVs (the first 44 minutes of each of the synthetic
+    WAV's halves) and one shifted .srt per job of ``BATCH_JOBS``, cues from
+    its episode's own truth spans."""
+    from ffsubsync_tpu.utils.fixtures import write_wav_i16
+
+    wavs = []
+    for h in range(2):
+        lo = h * CHUNK_SECONDS * RATE
+        wavs.append(os.path.join(workdir, "episode%d.wav" % h))
+        write_wav_i16(wavs[-1], pcm[lo : lo + EPISODE_SECONDS * RATE], RATE)
+    jobs = []
+    for i, (h, shift) in enumerate(BATCH_JOBS):
+        lo = h * CHUNK_SECONDS
+        cues = [(a - lo, b - lo) for a, b in spans
+                if a - lo - shift >= 0.5 and b - lo - shift <= EPISODE_SECONDS - 1.0]
+        srt = os.path.join(workdir, "job%d.srt" % i)
+        with open(srt, "w") as f:
+            f.write(_srt(cues, -shift))
+        jobs.append((wavs[h], srt, os.path.join(workdir, "job%d.out.srt" % i)))
+    return jobs
+
+
+def _timed_batch(jobs):
+    import torch
+
+    from ffsubsync_tpu_torch.batch import sync_batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = sync_batch(jobs, vad="fused")
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def _check_batch(results):
+    errs = []
+    for r, (_h, shift) in zip(results, BATCH_JOBS):
+        if r["error"] or not r["sync_was_successful"]:
+            fail("batch job %s failed: %s" % (r["srtin"], r))
+        errs.append(abs(r["offset_seconds"] - shift))
+        if errs[-1] > 0.15:
+            fail("batch job %s offset %.3f s, truth %.3f s" % (r["srtin"], r["offset_seconds"], shift))
+    return max(errs)
+
+
+def batch_phase(jobs):
+    """Phase 8. Returns (launches, wall s, worst offset error)."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu_torch.ops.align import align_candidates
+
+    with Instruments() as ins:
+        results, wall = _timed_batch(jobs)
+    log("batch of %d x %d min: %.3f s wall, offsets %s, frontend launches %d, chunks "
+        "dispatched %d" % (len(jobs), EPISODE_SECONDS // 60, wall,
+                           [r["offset_seconds"] for r in results], ins.launches, len(ins.programs)))
+    err = _check_batch(results)
+    if ins.launches != len(jobs) or len(ins.programs) != len(jobs):
+        fail("batch: %d frontend launches for %d dispatched chunks (want %d)"
+             % (ins.launches, len(ins.programs), len(jobs)))
+    if len(ins.batches) != 1:
+        fail("batch: %d batched searches, not 1" % len(ins.batches))
+    refs, candidates, kwargs, batched = ins.batches[0]
+    _on_card(refs, "batch")
+    # the batched search against one search per job, on the card
+    worst = 0.0
+    for ref, cands, got in zip(refs, candidates, batched):
+        single = align_candidates(ref, cands, kwargs["max_offset_samples"],
+                                  device=torch.device("cuda"))
+        if [a.offset for a in single] != [a.offset for a in got]:
+            fail("batched offsets %r, single %r" % ([a.offset for a in got],
+                                                    [a.offset for a in single]))
+        for a, b in zip(got, single):
+            rel = abs(a.score - b.score) / max(abs(b.score), 1e-9)
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                fail("batched score %r, single %r" % (a.score, b.score))
+    log("batched search = %d single searches on the card: offsets equal, worst "
+        "score rel diff %.3g; worst batch offset error %.3f s"
+        % (len(refs), worst, err))
+    return ins.launches, wall, err
 
 
 def labels_card_vs_cpu(pcm):
@@ -346,7 +599,7 @@ def labels_card_vs_cpu(pcm):
     return agree
 
 
-def measure(workdir, wav_path, pcm, runs=6):
+def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
     """The ``--measure`` phases (see the module docstring)."""
     import numpy as np
     import torch
@@ -356,15 +609,24 @@ def measure(workdir, wav_path, pcm, runs=6):
     from ffsubsync_tpu_torch.models.neural_vad import load_net
     from ffsubsync_tpu_torch.ops import vad
     from ffsubsync_tpu_torch.ops.features import prepare_staged_input
+    from ffsubsync_tpu_torch.parallel.batch import BatchAligner
 
-    # 1. wall seconds of repeated syncs in this process
+    # 1. wall seconds of repeated runs of every path in this process
+    def run_sync(label):
+        result, wall = _timed_sync(workdir, wav_path, label)
+        _check_result(label, result)
+        return wall
+
+    def run_batch():
+        results, wall = _timed_batch(batch_jobs)
+        _check_batch(results)
+        return wall
+
     warm_median = {}
-    for label in ("fused", "default"):
-        walls = []
-        for _ in range(runs):
-            result, wall = _timed_sync(workdir, wav_path, label)
-            _check_result(label, result)
-            walls.append(wall)
+    paths = [(label, lambda label=label: run_sync(label))
+             for label in ("fused", "default", "auditok", "multiseg")]
+    for label, run in paths + [("batch", run_batch)]:
+        walls = [run() for _ in range(runs)]
         warm = walls[1:]
         warm_median[label] = float(np.median(warm))
         log("wall %s: first %.4f s, warm median %.4f s (min %.4f, max %.4f, "
@@ -400,6 +662,20 @@ def measure(workdir, wav_path, pcm, runs=6):
                 % (label, wall, ", ".join("%s %.4f s" % kv for kv in spent.items()), rest))
     finally:
         vad.prepare_staged_input, vad._vad_program, sync.align_candidates = real
+
+    # the share of one warm batch spent in the batched search
+    spent.clear()
+    real_batch = BatchAligner.align_batch
+    BatchAligner.align_batch = timed("batched search", real_batch)
+    try:
+        _results, wall = _timed_batch(batch_jobs)
+    finally:
+        BatchAligner.align_batch = real_batch
+    _check_batch(_results)
+    log("breakdown batch of %d x %d min: wall %.4f s; batched search %.4f s "
+        "(%.4f of the wall)" % (len(batch_jobs), EPISODE_SECONDS // 60, wall,
+                                spent["batched search"],
+                                spent["batched search"] / wall))
 
     # 3. one _vad_program per mode on a 45-minute chunk
     framed, rate, window, n_windows = prepare_staged_input(
@@ -451,18 +727,25 @@ def main():
 
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="ffs_chip_smoke_") as workdir:
-        wav_path, pcm = synthesize(workdir)
+        wav_path, pcm, spans = synthesize(workdir)
         if opts.measure:
-            measure(workdir, wav_path, pcm)
+            measure(workdir, wav_path, pcm, make_batch_jobs(workdir, pcm, spans))
             log(smi)
             return
         worst = kernel_vs_plain(dev)
         chunk_errs, k_ms, p_ms = chunk_check_and_time(dev, pcm)
         results = main_path(workdir, wav_path)
-    agree = labels_card_vs_cpu(pcm)
-    log("phases done in %.1f s; fused 90-min sync %.3f s wall, default %.3f s "
-        "wall; label agreement %.5f"
-        % (time.perf_counter() - t_all, results["fused"][1], results["default"][1], agree))
+        agree = labels_card_vs_cpu(pcm)
+        results["auditok"] = auditok_phase(workdir, wav_path, pcm, dev)
+        results["multiseg"] = multiseg_phase(workdir, wav_path)
+        results["batch"] = batch_phase(make_batch_jobs(workdir, pcm, spans))
+    log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
+        "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
+        "label agreement %.5f, auditok %.6f"
+        % (time.perf_counter() - t_all, results["fused"][1], results["default"][1],
+           results["auditok"][1], results["multiseg"][1], len(BATCH_JOBS),
+           EPISODE_SECONDS // 60, results["batch"][1], agree, results["auditok"][3]))
+    auditok_errs, multiseg_errs = results["auditok"][4], results["multiseg"][3]
     kernels = {
         "kernels": [
             {
@@ -471,12 +754,17 @@ def main():
                 "source": "ffsubsync_tpu_torch/csrc/frontend.cu",
                 "replaces": "ffsubsync_tpu/ops/pallas/frontend.py:225",
                 "launches": results["fused"][0],
-                # worst log-mel abs error over every phase-3 comparison
-                "max_abs_err": max(worst["logmel"], chunk_errs["logmel"]),
-                # all three outputs at the main path's own chunk shape
+                # worst log-mel abs error over every comparison (phases 3, 6, 7)
+                "max_abs_err": max(worst["logmel"], chunk_errs["logmel"],
+                                   auditok_errs["logmel"], multiseg_errs["logmel"]),
+                # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
+                "auditok_max_abs_err": auditok_errs,
+                "multiseg_max_abs_err": multiseg_errs,
                 "ms": k_ms,
                 "plain_ms": p_ms,
+                # launches of each path's own run (phases 4, 6, 7 and 8)
+                "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]
     }

@@ -273,6 +273,12 @@ class VideoSpeechSource:
         pipeline_bytes = (
             _pipeline_chunk_samples(pcm_rate, self.sample_rate) * bytes_per_frame
         )
+        if getattr(detector, "buffers_pcm", False) and total_duration is None:
+            # this detector's handles retain the raw PCM (auditok's
+            # whole-signal tokenizer), so dispatching would make the spill
+            # below unreachable exactly where the cap guards: an unknown
+            # duration. Accumulate instead, where the cap can fire.
+            pipeline_bytes = 0
         media_bstring: List[Any] = []
         pcm_parts: List[Any] = []
         pending_handles: List[Any] = []
@@ -313,6 +319,9 @@ class VideoSpeechSource:
                 else:
                     media_bstring.append(detector(in_bytes))
         if buffered and (pending_handles or pcm_parts):
+            # a reference shorter than one chunk is one dispatch of the whole
+            # buffer: its labels stay on the device, and auditok's gather
+            # tokenizes the whole joined signal in one pass
             if pcm_parts:
                 pending_handles.append(detector.dispatch_async(_join_pcm_parts(pcm_parts)))
             media_bstring.append(detector.gather(pending_handles))

@@ -7,7 +7,9 @@ build happens at first use, into ``build/ffsubsync_tpu_torch/`` beside the
 package, and the library's file name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: the CPU test suite imports every module
-on a machine with no ``nvcc``.
+on a machine with no ``nvcc``. Building and loading are serialized by one
+process-wide lock: the multi-segment and batch paths reach the first kernel
+launch from several threads at once, and one nvcc run must serve them all.
 """
 import ctypes
 import functools
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import NamedTuple
 
@@ -26,6 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# re-entrant: load_library builds while holding it
+_LOCK = threading.RLock()
 
 
 class BuildResult(NamedTuple):
@@ -69,31 +74,40 @@ def library_path() -> str:
 
 def build_library() -> BuildResult:
     """Compile the kernels unless a build of the same sources exists.
-    Raises with nvcc's stderr when the build fails."""
-    path = library_path()
-    if os.path.exists(path):
-        return BuildResult(path, 0.0, "")
-    nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp%d" % (path, os.getpid())
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
-        capture_output=True,
-        text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed (exit %d):\n%s" % (proc.returncode, proc.stderr)
+    Raises with nvcc's stderr when the build fails. Thread-safe: concurrent
+    callers wait for one build and share its library."""
+    with _LOCK:
+        path = library_path()
+        if os.path.exists(path):
+            return BuildResult(path, 0.0, "")
+        nvcc = find_nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # pid and thread id: other processes sharing BUILD_DIR write their own file
+        tmp = "%s.tmp%d.%d" % (path, os.getpid(), threading.get_ident())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
+            capture_output=True,
+            text=True,
         )
-    os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
-    return BuildResult(path, seconds, proc.stderr)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit %d):\n%s" % (proc.returncode, proc.stderr)
+            )
+        os.replace(tmp, path)  # atomic: no other process loads a partial file
+        return BuildResult(path, seconds, proc.stderr)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library with every entry point's signature declared
+    (built and loaded once per process, whichever thread asks first)."""
+    with _LOCK:
+        return _load()
 
 
 @functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """The kernels' library with every entry point's signature declared."""
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library().path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ffs_frontend_launch.argtypes = [

@@ -6,7 +6,7 @@ Offset conventions, the ``(-max, max]`` window, the descending-offset
 tie-break and the exact rescore are the reference's; the host path and its
 helpers are imported from it unchanged.
 """
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,33 +59,45 @@ def align_candidates(
         device = ref.device  # labels already on their device
     if device is None:
         raise ValueError("align_candidates: no device for the device path")
-    k = len(candidates)
-    c_pad = next_pow2(max(1, max(len(c.starts) for c in candidates)))
-    starts = np.zeros((k, c_pad), np.int64)
-    ends = np.zeros((k, c_pad), np.int64)
-    weights = np.zeros(k, np.float32)
-    n_samples = np.zeros(k, np.int64)
-    start_offs = np.zeros(k, np.int64)
-    cnts = np.zeros(k, np.int64)
-    for i, cand in enumerate(candidates):
-        starts[i, : len(cand.starts)] = cand.starts
-        ends[i, : len(cand.ends)] = cand.ends
-        weights[i] = cand.weight
-        n_samples[i] = cand.n_samples
-        start_offs[i], cnts[i] = _offset_window(n, cand.n_samples, max_offset_samples)
-    n_offsets = (
-        n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
-    )
-    n_offsets = max(1, n_offsets)
+    *arrays, n_offsets = pack_candidates([candidates], n, max_offset_samples)
     ref_pm = align_device.prepare_ref_pm(ref, n, device)
     scores, offsets = align_device.align_specs(
-        ref_pm,
-        *(torch.from_numpy(a).to(device) for a in (starts, ends, weights, n_samples,
-                                                    start_offs, cnts)),
-        n,
-        n_offsets,
+        ref_pm[None], *(torch.from_numpy(a).to(device) for a in arrays), n, n_offsets
     )
     return [
         Alignment(float(s), int(o))
-        for s, o in zip(scores.cpu().tolist(), offsets.cpu().tolist())
+        for s, o in zip(scores[0].cpu().tolist(), offsets[0].cpu().tolist())
     ]
+
+
+def pack_candidates(
+    candidates_per_ref: Sequence[Sequence[RasterSpec]],
+    n: int,
+    max_offset_samples: Optional[int],
+) -> Tuple[np.ndarray, ...]:
+    """The ``B`` references' candidate sets as :func:`~ffsubsync_tpu_torch.
+    ops.align_device.align_specs` takes them, padded batch-wide: ``K`` is
+    the largest set, ``C`` the next power of two of the most cues. Returns
+    ``(starts, ends [B, K, C], weights, n_samples, start_offs, cnts [B, K],
+    n_offsets)``; a padding candidate is one empty sample with one offset.
+    """
+    b = len(candidates_per_ref)
+    k = max(len(c) for c in candidates_per_ref)
+    c_pad = next_pow2(
+        max(1, max(len(spec.starts) for cands in candidates_per_ref for spec in cands))
+    )
+    starts = np.zeros((b, k, c_pad), np.int64)
+    ends = np.zeros((b, k, c_pad), np.int64)
+    weights = np.zeros((b, k), np.float32)
+    n_samples = np.ones((b, k), np.int64)
+    start_offs = np.zeros((b, k), np.int64)
+    cnts = np.ones((b, k), np.int64)
+    for i, cands in enumerate(candidates_per_ref):
+        for j, spec in enumerate(cands):
+            starts[i, j, : len(spec.starts)] = spec.starts
+            ends[i, j, : len(spec.ends)] = spec.ends
+            weights[i, j] = spec.weight
+            n_samples[i, j] = spec.n_samples
+            start_offs[i, j], cnts[i, j] = _offset_window(n, spec.n_samples, max_offset_samples)
+    n_offsets = n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
+    return starts, ends, weights, n_samples, start_offs, cnts, max(1, n_offsets)

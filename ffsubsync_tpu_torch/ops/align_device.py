@@ -36,34 +36,50 @@ def _pm_raster(starts, ends, weights, n_samples, n: int) -> torch.Tensor:
 def align_specs(ref_pm, starts, ends, weights, n_samples, start_offs, cnts,
                 n: int, n_offsets: int):
     """Batched rasterize + FFT cross-correlate + masked argmax + exact
-    rescore (``ffsubsync_tpu/ops/align_device.py::_align_specs_kernel``).
+    rescore of ``B`` references, each against its own ``K`` candidates
+    (``ffsubsync_tpu/ops/align_device.py::_align_specs_kernel`` and its
+    vmapped twin ``ffsubsync_tpu/parallel/batch.py::_batched_sync_kernel``).
+    The single-file search calls it with ``B = 1``.
 
     Args:
-      ref_pm: f32[n] ±1-mapped reference (zeros beyond its true length).
-      starts, ends: int64[K, C] candidate cue intervals (padded with (0, 0)).
-      weights: f32[K] per-candidate written value ``min(1/ratio, 1)``.
-      n_samples: int64[K] per-candidate true signal length.
-      start_offs: int64[K] largest allowed offset per candidate.
-      cnts: int64[K] number of allowed offsets (descending from start_offs).
+      ref_pm: f32[B, n] ±1-mapped references (zeros beyond true lengths).
+      starts, ends: int64[B, K, C] candidate cue intervals (padded with (0, 0)).
+      weights: f32[B, K] per-candidate written value ``min(1/ratio, 1)``.
+      n_samples: int64[B, K] per-candidate true signal length.
+      start_offs: int64[B, K] largest allowed offset per candidate.
+      cnts: int64[B, K] number of allowed offsets (descending from start_offs).
     Returns:
-      (scores f32[K], offsets int64[K]) on the device.
+      (scores f32[B, K], offsets int64[B, K]) on the device.
     """
-    subs_pm = _pm_raster(starts, ends, weights, n_samples, n)
-    ref_f = torch.fft.rfft(ref_pm)
+    b, k, c = starts.shape
+    subs_pm = _pm_raster(
+        starts.reshape(b * k, c), ends.reshape(b * k, c), weights.reshape(-1),
+        n_samples.reshape(-1), n,
+    ).reshape(b, k, n)
+    ref_f = torch.fft.rfft(ref_pm, dim=-1)
     sub_f = torch.fft.rfft(subs_pm, dim=-1)
-    # c2[k, m] = sum_s subs_pm[k, s] * ref_pm[(s + m) mod n]
-    c2 = torch.fft.irfft(torch.conj(sub_f) * ref_f[None, :], n=n, dim=-1)
-    j = torch.arange(n_offsets, device=ref_pm.device)[None, :]
-    offs = start_offs[:, None] - j
-    gathered = torch.gather(c2, 1, torch.remainder(offs, n))
-    gathered = torch.where(j < cnts[:, None], gathered, float("-inf"))
+    # c2[b, k, m] = sum_s subs_pm[b, k, s] * ref_pm[b, (s + m) mod n]
+    c2 = torch.fft.irfft(torch.conj(sub_f) * ref_f[:, None, :], n=n, dim=-1)
+    j = torch.arange(n_offsets, device=ref_pm.device)
+    offs = start_offs[..., None] - j
+    gathered = torch.gather(c2, 2, torch.remainder(offs, n))
+    gathered = torch.where(j < cnts[..., None], gathered, float("-inf"))
     best_j = torch.argmax(gathered, dim=-1)  # first maximum
-    best_off = torch.gather(offs, 1, best_j[:, None])[:, 0]
+    best_off = torch.gather(offs, 2, best_j[..., None])[..., 0]
+    # exact rescore at the chosen offset: the roll of each reference as a
+    # gather, one candidate at a time (an index of [B, n], not [B, K, n]),
+    # with no host round trip for the offsets
+    t = torch.arange(n, device=ref_pm.device)
     scores = torch.stack(
         [
-            torch.dot(subs_pm[i], torch.roll(ref_pm, -off))
-            for i, off in enumerate(best_off.tolist())
-        ]
+            torch.sum(
+                subs_pm[:, i]
+                * torch.gather(ref_pm, 1, torch.remainder(t + best_off[:, i, None], n)),
+                dim=-1,
+            )
+            for i in range(k)
+        ],
+        dim=1,
     )
     return scores, best_off
 

@@ -22,6 +22,7 @@ per 3 bytes, silence = code 31).
 import ctypes
 import functools
 import math
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -38,6 +39,9 @@ _MULAW_SCALE = 32768.0 / MULAW_MU
 MULAW6_LEVELS = 31.0
 
 WIRE_I16, WIRE_MULAW, WIRE_MULAW6 = 0, 1, 2  # csrc/frontend.cu's enum Wire
+
+# segment and decode threads launch concurrently; += alone can lose counts
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def mulaw_encode_host(pcm_i16: np.ndarray) -> np.ndarray:
@@ -224,7 +228,8 @@ def fused_frontend(
             "frontend kernel launch failed: %s (cudaError %d)"
             % (lib.ffs_cuda_error_string(status).decode(), status)
         )
-    fused_frontend.launches += 1
+    with _LAUNCHES_LOCK:
+        fused_frontend.launches += 1
     return logmel, bands, total
 
 

@@ -18,11 +18,14 @@ runs as a Hillis–Steele doubling scan (:func:`_affine_scan`). The TPU-only
 two-level ``_blocked_scan`` does not carry over. The tuning constants are
 the reference's; the rationale for each lives beside the originals.
 
-``--vad auditok`` is not ported yet (ROADMAP A8).
+``--vad auditok`` (:func:`make_auditok_detector`) is the exception to the
+one-program rule, as in the reference: one frontend launch over the whole
+signal, one pull of its window powers, and the auditok-class tokenizer on
+the host (a sequential state machine the device is wrong for).
 """
 import logging
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +36,22 @@ from ffsubsync_tpu_torch.models.neural_vad import (
     NeuralVADNet,
     load_net,
 )
-from ffsubsync_tpu_torch.ops.features import analysis_rate, prepare_staged_input
+from ffsubsync_tpu_torch.ops.features import (
+    analysis_rate,
+    compute_frontend,
+    prepare_staged_input,
+)
 from ffsubsync_tpu_torch.ops.frontend import fused_frontend
 
 logger = logging.getLogger(__name__)
 
 _FUSION_STRATEGIES: Tuple[str, ...] = ("weighted", "intersection", "union")
+
+# auditok-parity tokenizer constants (ffsubsync_tpu/ops/vad.py)
+ENERGY_THRESHOLD_DB = 50.0
+MIN_TOKEN_FACTOR = 0.2  # × sample_rate windows
+MAX_TOKEN_FACTOR = 5.0
+MAX_SILENCE_FACTOR = 0.25
 
 # webrtc-class detector constants (ffsubsync_tpu/ops/vad.py constants block)
 _ENERGY_EMA_ALPHA = 0.35
@@ -363,6 +376,14 @@ class LazySpeechSignal:
                 self._dev_cache[n] = torch.zeros((n,), dtype=torch.float32)
         return self._dev_cache[n]
 
+    @classmethod
+    def from_host(cls, labels: np.ndarray, device: torch.device) -> "LazySpeechSignal":
+        """Host-computed labels (the tokenizer's) put on ``device`` for the
+        aligner; their exact float64 values stay cached for host readers."""
+        sig = cls([torch.from_numpy(np.asarray(labels, np.float32)).to(device)])
+        sig._np = np.asarray(labels, np.float64)
+        return sig
+
     def materialize(self) -> np.ndarray:
         if self._np is None:
             self._np = (
@@ -444,6 +465,119 @@ def _make_onelaunch_detector(
     return _detect
 
 
+def tokenize_validity(
+    valid: np.ndarray, min_length: int, max_length: int, max_continuous_silence: int
+) -> List[Tuple[int, int]]:
+    """auditok-class stream tokenization of a boolean validity string:
+    the native C++ state machine where ``libffs_native`` is built, else
+    :func:`_tokenize_validity_py` (``ffsubsync_tpu/ops/vad.py::
+    tokenize_validity``, whose own fallback imports jax)."""
+    from ffsubsync_tpu import native
+
+    if native.AVAILABLE:
+        return native.tokenize(valid, min_length, max_length, max_continuous_silence)
+    return _tokenize_validity_py(valid, min_length, max_length, max_continuous_silence)
+
+
+def _tokenize_validity_py(
+    valid: np.ndarray, min_length: int, max_length: int, max_continuous_silence: int
+) -> List[Tuple[int, int]]:
+    """The behavioral definition of :func:`tokenize_validity` (a copy of
+    ``ffsubsync_tpu/ops/vad.py::_tokenize_validity_py``).
+
+    Tokens begin at a valid frame, tolerate up to ``max_continuous_silence``
+    consecutive invalid frames (which stay part of the token), end when
+    silence exceeds that, are split at ``max_length``, and are dropped when
+    shorter than ``min_length``.
+    """
+    tokens: List[Tuple[int, int]] = []
+    start: Optional[int] = None
+    silence_run = 0
+    length = 0
+    for i, v in enumerate(np.asarray(valid, dtype=bool)):
+        if start is None:
+            if v:
+                start = i
+                length = 1
+                silence_run = 0
+        else:
+            if v:
+                silence_run = 0
+            else:
+                silence_run += 1
+            length += 1
+            if silence_run > max_continuous_silence:
+                end = i - silence_run
+                if end - start + 1 >= min_length:
+                    tokens.append((start, end + silence_run))  # keep trailing silence
+                start = None
+                length = 0
+                silence_run = 0
+                continue
+            if length >= max_length:
+                tokens.append((start, i))
+                start = None
+                length = 0
+                silence_run = 0
+    if start is not None:
+        end = len(valid) - 1 - silence_run
+        if end - start + 1 >= min_length:
+            tokens.append((start, min(end + silence_run, len(valid) - 1)))
+    return tokens
+
+
+def make_auditok_detector(sample_rate, frame_rate, non_speech_label, device):
+    """Energy tokenizer (``ffsubsync_tpu/ops/vad.py::make_auditok_detector``):
+    one frontend launch over the signal on ``device``, one pull of the
+    window powers, ``10·log10`` against the 50 dB line and the host
+    tokenizer. Labels are 1.0 inside each token and, through the
+    reference's cumsum shaping, 0 before the first token and
+    ``non_speech_label`` after each one.
+
+    ``dispatch_async`` only buffers PCM and ``gather`` tokenizes the WHOLE
+    joined signal in one pass, so tokens never depend on pipeline chunking
+    (a token straddling a chunk edge would split, and fragments under the
+    minimum length would vanish). ``buffers_pcm`` tells the media layer that
+    the handles retain the signal, so it must not pipeline when the
+    duration, and with it the memory bound, is unknown.
+    """
+    min_length = int(MIN_TOKEN_FACTOR * sample_rate)
+    max_length = int(MAX_TOKEN_FACTOR * sample_rate)
+    max_silence = int(MAX_SILENCE_FACTOR * sample_rate)
+
+    def _detect(chunk) -> np.ndarray:
+        pcm = _pcm_bytes_to_i16(chunk)
+        if len(pcm) == 0:
+            return np.zeros(0)
+        _logmel, _bands, total, n_windows = compute_frontend(
+            pcm, frame_rate, sample_rate, device
+        )
+        energies = 10.0 * np.log10(np.maximum(total[:n_windows].cpu().numpy(), 1e-10))
+        valid = energies >= ENERGY_THRESHOLD_DB
+        media_bstring = np.zeros(n_windows + 1)
+        for tok_start, tok_end in tokenize_validity(valid, min_length, max_length, max_silence):
+            media_bstring[tok_start] = 1.0
+            media_bstring[tok_end + 1] = non_speech_label - 1.0
+        return np.clip(np.cumsum(media_bstring)[:-1], 0.0, 1.0)
+
+    def _gather(handles) -> LazySpeechSignal:
+        pcm_parts = []
+        for h in handles:
+            for tag, part in h if isinstance(h, list) else [h]:
+                if tag != "auditok_pcm":
+                    raise ValueError("not an auditok handle: %r" % (tag,))
+                pcm_parts.append(part)
+        if not pcm_parts:
+            return LazySpeechSignal([])
+        joined = pcm_parts[0] if len(pcm_parts) == 1 else np.concatenate(pcm_parts)
+        return LazySpeechSignal.from_host(_detect(joined), device)
+
+    _detect.dispatch_async = lambda chunk: [("auditok_pcm", _pcm_bytes_to_i16(chunk))]
+    _detect.gather = _gather
+    _detect.buffers_pcm = True
+    return _detect
+
+
 def make_webrtc_detector(sample_rate, frame_rate, non_speech_label, device):
     """WebRTC-class detector: flux-gated sub-band SNR on the device."""
     return _make_onelaunch_detector(
@@ -483,10 +617,7 @@ def make_detector(vad: str, sample_rate: int, frame_rate: int,
     if "webrtc" in vad:
         return make_webrtc_detector(sample_rate, frame_rate, non_speech_label, device)
     if "auditok" in vad:
-        raise NotImplementedError(
-            "--vad auditok is not ported to ffsubsync_tpu_torch yet (ROADMAP "
-            "A8); use ffsubsync_tpu or another --vad"
-        )
+        return make_auditok_detector(sample_rate, frame_rate, non_speech_label, device)
     if "silero" in vad:
         return make_silero_detector(sample_rate, frame_rate, non_speech_label, device)
     raise ValueError("unknown vad: %s" % vad)

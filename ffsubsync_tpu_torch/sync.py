@@ -282,12 +282,25 @@ def make_reference_extractor(
     ref_stream = args.reference_stream
     if ref_stream is not None and not ref_stream.startswith("0:"):
         ref_stream = "0:" + ref_stream
-    if getattr(args, "multi_segment_sync", False):
-        raise NotImplementedError(
-            "--multi-segment-sync is not ported to ffsubsync_tpu_torch yet "
-            "(ROADMAP A8); use ffsubsync_tpu"
-        )
     from ffsubsync_tpu_torch.device import get_device
+
+    if getattr(args, "multi_segment_sync", False):
+        from ffsubsync_tpu_torch.media.segments import MultiSegmentVideoSpeechSource
+
+        return MultiSegmentVideoSpeechSource(
+            vad=vad,
+            sample_rate=SAMPLE_RATE,
+            frame_rate=args.frame_rate,
+            non_speech_label=args.non_speech_label,
+            device=get_device(),
+            segment_count=getattr(args, "segment_count", 8),
+            skip_intro_outro=getattr(args, "skip_intro_outro", False),
+            parallel_workers=getattr(args, "parallel_workers", 4),
+            ffmpeg_path=args.ffmpeg_path,
+            ref_stream=ref_stream,
+            vlc_mode=args.vlc_mode,
+            gui_mode=args.gui_mode,
+        )
     from ffsubsync_tpu_torch.media.audio import VideoSpeechSource
 
     return VideoSpeechSource(

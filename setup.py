@@ -51,6 +51,7 @@ setup(
             "ffs-tpu=ffsubsync_tpu.sync:main",  # Docker/docs entry name
             "ffs-tpu-batch=ffsubsync_tpu.batch:main",
             "ffs-torch=ffsubsync_tpu_torch.sync:main",  # PyTorch/CUDA port
+            "ffs-torch-batch=ffsubsync_tpu_torch.batch:main",
         ],
     },
     zip_safe=False,

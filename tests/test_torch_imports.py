@@ -17,7 +17,10 @@ _NO_JAX_SYNC = r"""
 import os, sys, tempfile
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import ffsubsync_tpu_torch
+import ffsubsync_tpu_torch.media.segments
+import ffsubsync_tpu_torch.parallel.batch
 from ffsubsync_tpu_torch import make_parser, run
+from ffsubsync_tpu_torch.batch import sync_batch
 from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
 from ffsubsync_tpu.utils.fixtures import write_wav_i16
 
@@ -35,17 +38,30 @@ with tempfile.TemporaryDirectory() as d:
         for i, (a, b) in enumerate(spans):  # cues 1.25 s early
             f.write("%d\n%s --> %s\nx\n\n"
                     % (i + 1, stamp(a - 1.25).replace(".", ","), stamp(b - 1.25).replace(".", ",")))
-    result = run(make_parser().parse_args(
-        [wav, "-i", srt, "-o", os.path.join(d, "out.srt"), "--vad", "fused"]))
-assert result["sync_was_successful"], result
-assert abs(result["offset_seconds"] - 1.25) < 0.15, result
+    results = [
+        run(make_parser().parse_args(
+            [wav, "-i", srt, "-o", os.path.join(d, "out.srt")] + extra))
+        for extra in (["--vad", "fused"], ["--vad", "auditok"],
+                      ["--multi-segment-sync", "--segment-count", "1"])
+    ]
+    results += sync_batch([(wav, srt, os.path.join(d, "b%d.srt" % i)) for i in range(2)],
+                          vad="fused")
+for result in results:
+    assert result["sync_was_successful"], result
+    assert abs(result["offset_seconds"] - 1.25) < 0.15, result
+result = results[0]
 loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] == "jax"]
 assert not loaded, loaded
+jax_package = ("ffsubsync_tpu.batch", "ffsubsync_tpu.media.segments", "ffsubsync_tpu.media.audio",
+               "ffsubsync_tpu.parallel", "ffsubsync_tpu.ops.vad", "ffsubsync_tpu.ops.features")
+assert not [m for m in jax_package if m in sys.modules], sys.modules.keys()
 print("NO_JAX_SYNC_OK", result["offset_seconds"])
 """
 
 
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
+    """The fused, auditok, multi-segment and batch syncs of a WAV, with jax
+    made unimportable; none of the JAX package's device modules loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run(

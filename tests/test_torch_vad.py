@@ -117,9 +117,13 @@ def test_lazy_speech_signal():
         sig.padded_values(4)
 
 
-def test_detector_errors():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tvad.make_detector("auditok", 100, RATE, 0.0, CPU)
+def test_detector_errors(pcm):
+    # auditok (ported) routes as in the reference, prefix and all
+    want = np.asarray(jvad.make_detector("auditok", 100, RATE, 0.0)(pcm))
+    for name in ("auditok", "subs_then_auditok"):
+        det = tvad.make_detector(name, 100, RATE, 0.0, CPU)
+        assert det.buffers_pcm
+        np.testing.assert_array_equal(det(pcm), want)
     with pytest.raises(ValueError):
         tvad.make_detector("fused:bogus", 100, RATE, 0.0, CPU)
     with pytest.raises(ValueError):
