@@ -34,7 +34,21 @@ needs no network and no jax. Phases, each fatal on failure:
    own shift; shorter than one pipeline chunk, as most episodes are): 10
    frontend launches, every shift within 0.15 s, every reference at the
    batched search as CUDA labels, and the batched search equal to one
-   search per job.
+   search per job; the batch once more with its search split over the
+   mesh ``[cuda:0, cuda:0]`` (and over every card where there are two or
+   more), offsets equal to the one-device run;
+9. the sequence-parallel VAD (``parallel/vad_shard``) on the 90-minute
+   signal: one sharded call from PCM on 4 shards of ``cuda:0`` (4
+   launches, labels on the card that recover the shift within 0.15 s);
+   for ``weighted``, ``webrtc`` and ``silero``, 4 and 3 shards of
+   ``cuda:0`` (and every card, where there are two or more) against the
+   monolithic ``_vad_program`` over the whole signal as one chunk on the
+   card, the second call of each under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync from the
+   staged shards to the labels); the kernel against its plain version at
+   one shard's launch shape; card against CPU sharded labels on 10
+   minutes; and a CLI sync with ``FFS_TPU_SP_VAD=1``, which on one card
+   keeps the chunked path (the gate needs two or more cards).
 
 Every path is driven with the kernel's launch count set to 0 just before
 and read just after. The last two lines of standard output are one JSON
@@ -70,6 +84,16 @@ BATCH_JOBS = [(i % 2, shift) for i, shift in enumerate(
     (-4.1, -2.6, 0.9, 2.3, 3.7, 5.05, 6.4, 7.8, -1.15, 4.55))]
 # reference tolerances (tests/test_pallas_frontend.py): (rtol, atol)
 TOLS = {"logmel": (2e-3, 2e-3), "bands": (2e-3, 1e-5), "total": (1e-4, 0.0)}
+SP_SHARDS = (4, 3)  # phase 9: meshes that repeat cuda:0
+SP_MODES = ("weighted", "webrtc", "silero")
+# sharded against monolithic labels: more than SP_AGREEMENT of windows
+# within SP_TOL (tests/test_vad_shard.py's bar). That test also wants no
+# window SP_MAX_DIFF or more apart, which holds at its 6,400 windows but not
+# at 540,000: there float32 rounding flips a few hard webrtc votes, in the
+# monolithic program as well (15 flips against a float64 run of it on the
+# CPU, the 4-shard program 6), so at most SP_FLIPS of windows may differ by
+# a whole vote
+SP_TOL, SP_AGREEMENT, SP_MAX_DIFF, SP_FLIPS = 0.02, 0.999, 0.05, 1e-4
 
 
 def log(*parts):
@@ -515,14 +539,14 @@ def make_batch_jobs(workdir, pcm, spans):
     return jobs
 
 
-def _timed_batch(jobs):
+def _timed_batch(jobs, mesh=None):
     import torch
 
     from ffsubsync_tpu_torch.batch import sync_batch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = sync_batch(jobs, vad="fused")
+    results = sync_batch(jobs, vad="fused", mesh=mesh)
     torch.cuda.synchronize()
     return results, time.perf_counter() - t0
 
@@ -574,7 +598,182 @@ def batch_phase(jobs):
     log("batched search = %d single searches on the card: offsets equal, worst "
         "score rel diff %.3g; worst batch offset error %.3f s"
         % (len(refs), worst, err))
+    # the search split over a mesh: each job's result is the one-device one
+    offsets = [r["offset_seconds"] for r in results]
+    for mesh in [[torch.device("cuda", 0)] * 2] + _distinct_cards():
+        meshed, mesh_wall = _timed_batch(jobs, mesh)
+        if [r["offset_seconds"] for r in meshed] != offsets:
+            fail("batch offsets on mesh %s: %r, one device: %r"
+                 % (mesh, [r["offset_seconds"] for r in meshed], offsets))
+        log("batch with its search over %s: %.3f s wall, offsets equal to the "
+            "one-device run" % ([str(d) for d in mesh], mesh_wall))
     return ins.launches, wall, err
+
+
+def _distinct_cards():
+    """A mesh of every card, where there are two or more (copies between
+    GPUs), as a list of zero or one mesh."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [[torch.device("cuda", i) for i in range(n)]] if n >= 2 else []
+
+
+def _close_labels(got, want, what):
+    """Sharded labels against a yardstick under the SP bounds; fails outside
+    them. Returns (windows SP_MAX_DIFF or more apart, largest difference of
+    the others)."""
+    import numpy as np
+
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail("%s: shape %r against %r, or non-finite labels" % (what, got.shape, want.shape))
+    diff = np.abs(got - want)
+    agree = float(np.mean(diff < SP_TOL))
+    flips = int(np.sum(diff >= SP_MAX_DIFF))
+    log("  %s: %.6f of %d windows within %g, max |d| %.3g; %d windows %g or more "
+        "apart (at %s), max |d| of the others %.3g"
+        % (what, agree, len(diff), SP_TOL, float(diff.max()), flips, SP_MAX_DIFF,
+           np.nonzero(diff >= SP_MAX_DIFF)[0][:20].tolist(),
+           float(diff[diff < SP_MAX_DIFF].max())))
+    if agree <= SP_AGREEMENT or flips > SP_FLIPS * len(diff):
+        fail("%s: labels outside the bounds" % what)
+    return flips, float(diff[diff < SP_MAX_DIFF].max())
+
+
+def sp_phase(pcm, spans):
+    """Phase 9, the sharded VAD. Returns (launches of the one counted call
+    from PCM, kernel-vs-plain abs errors at one shard's launch shape, and
+    against the monolithic program the most windows of one comparison a
+    vote apart and the largest difference of the others)."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu.subs.raster import rasterize_intervals
+    from ffsubsync_tpu_torch.models.neural_vad import load_net
+    from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.ops import vad
+    from ffsubsync_tpu_torch.ops.align import align_candidates
+    from ffsubsync_tpu_torch.ops.features import prepare_staged_input
+    from ffsubsync_tpu_torch.parallel import vad_shard
+
+    card = torch.device("cuda", 0)
+    meshes = [[card] * d for d in SP_SHARDS] + _distinct_cards()
+    n_windows = MINUTES * 60 * SAMPLE_RATE
+
+    # the path as a caller of make_sharded_detector drives it: PCM in, lazy
+    # labels out, one launch per shard
+    det = vad_shard.make_sharded_detector(meshes[0], "weighted", SAMPLE_RATE, RATE, 0.0)
+    torch.cuda.synchronize()
+    fe.fused_frontend.launches = 0
+    t0 = time.perf_counter()
+    signal = det(pcm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fe.fused_frontend.launches
+    log("sharded VAD, weighted, %d shards of %s: %.4f s wall from PCM (staging "
+        "included), frontend launches %d" % (len(meshes[0]), card, wall, launches))
+    if launches != len(meshes[0]):
+        fail("sharded call: %d frontend launches for %d shards" % (launches, len(meshes[0])))
+    if signal.device != card or len(signal) != n_windows:
+        fail("sharded labels: %d windows on %s" % (len(signal), signal.device))
+    cand = rasterize_intervals([(a - TRUE_OFFSET_S, b - TRUE_OFFSET_S) for a, b in spans],
+                               SAMPLE_RATE)
+    (found,) = align_candidates(signal, [cand], max_offset_samples=60 * SAMPLE_RATE)
+    shift_err = abs(found.offset / SAMPLE_RATE - TRUE_OFFSET_S)
+    log("sharded labels through align_candidates: offset %.2f s, truth %.2f s"
+        % (found.offset / SAMPLE_RATE, TRUE_OFFSET_S))
+    if shift_err > 0.15:
+        fail("sharded labels recover %.3f s, truth %.3f s"
+             % (found.offset / SAMPLE_RATE, TRUE_OFFSET_S))
+
+    # every mode and mesh against the monolithic program: the whole signal
+    # as one chunk on the card, fresh state
+    framed, rate, window, n = prepare_staged_input(pcm, RATE, SAMPLE_RATE)
+    whole = torch.from_numpy(framed).to(card)
+    worst, shard_errs = (0, 0.0), None
+    for mode in SP_MODES:
+        net = None if mode == "webrtc" else load_net(rate, card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mono, _state = vad._vad_program(whole, window, rate, n, vad.initial_state(card),
+                                        net, 0.0, mode)
+        torch.cuda.synchronize()
+        log("monolithic _vad_program %s, [%d, %d] as one chunk: %.4f s wall"
+            % (mode, n, window, time.perf_counter() - t0))
+        mono = mono.cpu().numpy().astype(np.float64)
+        for mesh in meshes:
+            det = vad_shard.make_sharded_detector(mesh, mode, SAMPLE_RATE, RATE, 0.0)
+            shards, window_s, rate_s, n_s = det.stage(pcm)
+            if [s.device for s in shards] != mesh:
+                fail("shards staged on %r for the mesh %r" % ([s.device for s in shards], mesh))
+            walls = []
+            for sync_debug in ("default", "error"):
+                torch.cuda.synchronize()
+                fe.fused_frontend.launches = 0
+                t0 = time.perf_counter()
+                # "error": any host sync from the staged shards to the
+                # joined labels raises
+                torch.cuda.set_sync_debug_mode(sync_debug)
+                try:
+                    labels = det.run(shards, window_s, rate_s, n_s)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if fe.fused_frontend.launches != len(mesh) or labels.device != card:
+                    fail("sharded %s: %d launches for %d shards, labels on %s"
+                         % (mode, fe.fused_frontend.launches, len(mesh), labels.device))
+            what = "%s on %s" % (mode, [str(d) for d in mesh])
+            log("sharded %s: shards [%d, %d], run %.4f s, then %.4f s under "
+                "sync-debug error (no host sync); %d launches per call"
+                % (what, shards[0].shape[0], shards[0].shape[1], walls[0], walls[1], len(mesh)))
+            flips, rest = _close_labels(labels.cpu().numpy().astype(np.float64), mono,
+                                        "%s vs monolithic" % what)
+            worst = (max(worst[0], flips), max(worst[1], rest))
+            if shard_errs is None:
+                x = shards[1]
+                got = fe.fused_frontend(x, window_s, rate_s)
+                torch.cuda.synchronize()
+                shard_errs = compare(got, fe.frontend_plain(x, window_s, rate_s),
+                                     "one shard [%d, %d] %s" % (
+                                         x.shape[0], x.shape[1],
+                                         str(x.dtype).replace("torch.", "")))
+        del mono
+
+    # the card's sharded labels against the port's on the CPU
+    part = pcm[: LABEL_MINUTES * 60 * RATE]
+    on_card = np.asarray(vad_shard.make_sharded_detector(
+        meshes[0], "weighted", SAMPLE_RATE, RATE, 0.0)(part))
+    on_cpu = np.asarray(vad_shard.make_sharded_detector(
+        [torch.device("cpu")] * len(meshes[0]), "weighted", SAMPLE_RATE, RATE, 0.0)(part))
+    _close_labels(on_card, on_cpu, "sharded weighted, %d min, card vs CPU" % LABEL_MINUTES)
+    return launches, shard_errs, worst
+
+
+def sp_gate_phase(workdir, wav_path, chunked_launches):
+    """Phase 9, the product gate: a CLI sync with ``FFS_TPU_SP_VAD=1``. One
+    card keeps the chunked path (``chunked_launches``, phase 4's fused
+    count); two or more take one sharded call (one launch per card).
+    Returns the launches."""
+    import torch
+
+    os.environ["FFS_TPU_SP_VAD"] = "1"
+    try:
+        with Instruments() as ins:
+            result, wall = _timed_sync(workdir, wav_path, "fused")
+    finally:
+        del os.environ["FFS_TPU_SP_VAD"]
+    n_cards = torch.cuda.device_count()
+    want = (chunked_launches,) * 2 if n_cards < 2 else (n_cards, 0)
+    log("fused sync with FFS_TPU_SP_VAD=1 on %d card(s): %.3f s wall, result %s, "
+        "frontend launches %d, chunked programs %d"
+        % (n_cards, wall, result, ins.launches, len(ins.programs)))
+    _check_result("FFS_TPU_SP_VAD=1", result)
+    if (ins.launches, len(ins.programs)) != want:
+        fail("FFS_TPU_SP_VAD=1: %d launches and %d chunked programs, want %r"
+             % (ins.launches, len(ins.programs), want))
+    _on_card([ref for ref, _c, _o in ins.searches], "FFS_TPU_SP_VAD=1")
+    return ins.launches
 
 
 def labels_card_vs_cpu(pcm):
@@ -739,13 +938,18 @@ def main():
         results["auditok"] = auditok_phase(workdir, wav_path, pcm, dev)
         results["multiseg"] = multiseg_phase(workdir, wav_path)
         results["batch"] = batch_phase(make_batch_jobs(workdir, pcm, spans))
+        results["sp"] = sp_phase(pcm, spans)
+        results["fused_sp_env"] = (sp_gate_phase(workdir, wav_path, results["fused"][0]),)
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
-        "label agreement %.5f, auditok %.6f"
+        "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
+        "at most %d windows a vote apart, the others within %.3g"
         % (time.perf_counter() - t_all, results["fused"][1], results["default"][1],
            results["auditok"][1], results["multiseg"][1], len(BATCH_JOBS),
-           EPISODE_SECONDS // 60, results["batch"][1], agree, results["auditok"][3]))
+           EPISODE_SECONDS // 60, results["batch"][1], agree, results["auditok"][3],
+           results["sp"][2][0], results["sp"][2][1]))
     auditok_errs, multiseg_errs = results["auditok"][4], results["multiseg"][3]
+    shard_errs = results["sp"][1]
     kernels = {
         "kernels": [
             {
@@ -754,16 +958,21 @@ def main():
                 "source": "ffsubsync_tpu_torch/csrc/frontend.cu",
                 "replaces": "ffsubsync_tpu/ops/pallas/frontend.py:225",
                 "launches": results["fused"][0],
-                # worst log-mel abs error over every comparison (phases 3, 6, 7)
+                # worst log-mel abs error over every comparison (phases 3, 6,
+                # 7 and 9)
                 "max_abs_err": max(worst["logmel"], chunk_errs["logmel"],
-                                   auditok_errs["logmel"], multiseg_errs["logmel"]),
+                                   auditok_errs["logmel"], multiseg_errs["logmel"],
+                                   shard_errs["logmel"]),
                 # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
                 "auditok_max_abs_err": auditok_errs,
                 "multiseg_max_abs_err": multiseg_errs,
+                "sp_shard_max_abs_err": shard_errs,
                 "ms": k_ms,
                 "plain_ms": p_ms,
-                # launches of each path's own run (phases 4, 6, 7 and 8)
+                # launches of each path's own run (phases 4 and 6-9; "sp" is
+                # one sharded call on 4 shards, "fused_sp_env" the CLI sync
+                # with FFS_TPU_SP_VAD=1)
                 "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]

@@ -1,12 +1,12 @@
 # -*- coding: utf-8 -*-
 """Batch sync: many (reference, subtitles) jobs, one candidate search.
 
-Counterpart of ``ffsubsync_tpu/batch.py``, on one GPU. Speech extraction
-runs per job (decode overlapped by a thread pool, VAD as the usual one
-``_vad_program`` per pipeline chunk on the device), then every job's
+Counterpart of ``ffsubsync_tpu/batch.py``. Speech extraction runs per job
+(decode overlapped by a thread pool, VAD as the usual one ``_vad_program``
+per pipeline chunk on the default device), then every job's
 candidate-ratio search is scored in one
-:class:`~ffsubsync_tpu_torch.parallel.batch.BatchAligner` call, the batch a
-stacked leading dimension of the device's tensors.
+:class:`~ffsubsync_tpu_torch.parallel.batch.BatchAligner` call over the
+device mesh, each device's group of jobs a stacked leading dimension.
 
 Library surface::
 
@@ -103,6 +103,7 @@ def sync_batch(
     no_fix_framerate: bool = False,
     gss: bool = False,
     decode_workers: int = 4,
+    mesh: Optional[Sequence[Any]] = None,
     output_encoding: str = "utf-8",
     min_score: float = DEFAULT_MIN_SCORE,
     quality_max_offset_seconds: float = DEFAULT_QUALITY_MAX_OFFSET_SECONDS,
@@ -113,11 +114,12 @@ def sync_batch(
 
     ``srtout`` must be a path for every job. With ``gss``, the discrete
     grid search is followed by batched grid-refinement rounds (the batch
-    form of ``sync._run_gss_search``). Extraction and search run on the one
-    device ``FFS_TORCH_DEVICE`` names (:mod:`ffsubsync_tpu_torch.device`).
-    Returns one result dict per job: ``{reference, srtin, srtout,
-    offset_seconds, framerate_scale_factor, sync_was_successful,
-    quality_reasons, error}``.
+    form of ``sync._run_gss_search``). Extraction runs on the device
+    ``FFS_TORCH_DEVICE`` names (:mod:`ffsubsync_tpu_torch.device`); the
+    search is split over ``mesh``, a sequence of devices (default: every
+    local device of that kind). Returns one result dict per job:
+    ``{reference, srtin, srtout, offset_seconds, framerate_scale_factor,
+    sync_was_successful, quality_reasons, error}``.
 
     ``output_encoding`` follows the single-file flag's semantics ("same"
     preserves each input's detected encoding); ``ref_options`` forwards
@@ -127,7 +129,6 @@ def sync_batch(
     from ffsubsync_tpu.speech import make_subtitle_speech_source
     from ffsubsync_tpu.subs.parser import make_subtitle_parser
     from ffsubsync_tpu.sync import assess_alignment_quality
-    from ffsubsync_tpu_torch.device import get_device
     from ffsubsync_tpu_torch.parallel.batch import BatchAligner
 
     for reference, srtin, srtout in jobs:
@@ -214,7 +215,7 @@ def sync_batch(
         return results
 
     # --- one batched search scores every job's candidate set ---------------
-    aligner = BatchAligner(get_device())
+    aligner = BatchAligner(mesh)
     max_offset_samples = abs(int(max_offset_seconds * SAMPLE_RATE))
     all_alignments = aligner.align_batch(
         refs, [[s.spec_ for s in srcs] for srcs in sources_per_job],
@@ -308,7 +309,8 @@ def sync_batch(
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Batch-synchronize many subtitle/reference pairs in one "
-        "batched search on the device FFS_TORCH_DEVICE names."
+        "batched search over the local devices of the kind FFS_TORCH_DEVICE "
+        "names."
     )
     parser.add_argument(
         "manifest",

@@ -5,8 +5,14 @@
 package: ``cuda`` (the default) or ``cpu``. Asking for ``cuda`` on a machine
 without a usable GPU raises — the port never carries on on the CPU behind
 the user's back. Callers resolve the device once and pass it down.
+
+A *mesh* is a sequence of ``torch.device``s that one process drives
+(:func:`local_mesh`, the counterpart of ``jax.devices()``): the sharded
+VAD (``parallel/vad_shard.py``) and the batch search
+(``parallel/batch.py``) spread their work over it.
 """
 import os
+from typing import Tuple
 
 import torch
 
@@ -27,3 +33,11 @@ def get_device() -> torch.device:
             % (DEVICE_ENV, torch.__version__, DEVICE_ENV)
         )
     return torch.device(name)
+
+
+def local_mesh(device: torch.device) -> Tuple[torch.device, ...]:
+    """The distinct local devices of ``device``'s kind: every ``cuda:i``
+    for a CUDA device, ``(cpu,)`` for the CPU."""
+    if device.type == "cuda":
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    return (torch.device("cpu"),)

@@ -6,9 +6,10 @@ to this port's detectors (:func:`ffsubsync_tpu_torch.ops.vad.make_detector`)
 on an explicit ``device``. ffmpeg decodes containers to s16le PCM on a pipe;
 WAV files are read in-process (``ffsubsync_tpu.media.wav``). In buffered
 mode (the default) PCM is dispatched to the device in pipeline chunks as
-it streams in, and the labels stay on the device for the aligner. The
-JAX package's sequence-parallel branch (``parallel.vad_shard``) has no
-counterpart yet: this port runs on one GPU (ROADMAP A12).
+it streams in, and the labels stay on the device for the aligner. With
+``FFS_TPU_SP_VAD=1`` and at least two GPUs, the whole buffer instead runs
+as one sequence-parallel call (:mod:`ffsubsync_tpu_torch.parallel.
+vad_shard`); the chunked detector stays for the streaming spill.
 """
 import logging
 import os
@@ -25,6 +26,7 @@ from ffsubsync_tpu.media.ffmpeg import ffmpeg_bin_path, probe_duration, subproce
 from ffsubsync_tpu.media.wav import WavReader, is_wav_file
 from ffsubsync_tpu.utils.progress import ProgressInfo, ProgressReporter
 from ffsubsync_tpu_torch.ops.vad import _pipeline_chunk_samples, make_detector
+from ffsubsync_tpu_torch.parallel.vad_shard import maybe_sharded_detector
 
 logger = logging.getLogger(__name__)
 
@@ -267,12 +269,20 @@ class VideoSpeechSource:
             self.vad, self.sample_rate, pcm_rate, self._non_speech_label, self.device
         )
         buffered = self._use_buffered_vad(total_duration, pcm_rate)
+        sp_detector = None
+        if buffered:
+            sp_detector = maybe_sharded_detector(
+                self.vad, self.sample_rate, pcm_rate, self._non_speech_label, self.device
+            )
         max_buffer_bytes = int(os.environ.get("FFS_TPU_MAX_BUFFER_BYTES", 4 * 1024**3))
         bytes_per_frame = 2
         bytes_per_window = bytes_per_frame * pcm_rate // self.sample_rate
         pipeline_bytes = (
             _pipeline_chunk_samples(pcm_rate, self.sample_rate) * bytes_per_frame
         )
+        if sp_detector is not None:
+            # the sequence-parallel call needs the whole buffer
+            pipeline_bytes = 0
         if getattr(detector, "buffers_pcm", False) and total_duration is None:
             # this detector's handles retain the raw PCM (auditok's
             # whole-signal tokenizer), so dispatching would make the spill
@@ -318,7 +328,9 @@ class VideoSpeechSource:
                         buffered = False
                 else:
                     media_bstring.append(detector(in_bytes))
-        if buffered and (pending_handles or pcm_parts):
+        if buffered and sp_detector is not None and pcm_parts:
+            media_bstring.append(sp_detector(_join_pcm_parts(pcm_parts)))
+        elif buffered and (pending_handles or pcm_parts):
             # a reference shorter than one chunk is one dispatch of the whole
             # buffer: its labels stay on the device, and auditok's gather
             # tokenizes the whole joined signal in one pass

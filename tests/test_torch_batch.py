@@ -90,7 +90,7 @@ def test_batched_search_equals_reference_kernel(seed, max_offset):
 
 def test_batch_of_one_equals_single_search():
     refs, cands = _random_case(np.random.RandomState(7), 3)
-    aligner = BatchAligner(CPU)
+    aligner = BatchAligner([CPU])
     batched = aligner.align_batch(refs, cands, max_offset_samples=200)
     for ref, cs, got in zip(refs, cands, batched):
         single = talign.align_candidates(ref, cs, 200, device=CPU)
@@ -120,7 +120,7 @@ def test_batch_aligner_accepts_lazy_device_refs():
     """Port of tests/test_batch.py::test_batch_aligner_accepts_lazy_device_
     refs: lazy refs (two chunks each) score as their host values do."""
     rng = np.random.RandomState(0)
-    aligner = BatchAligner(CPU)
+    aligner = BatchAligner([CPU])
     refs_np, refs_lazy, cands = [], [], []
     for b in range(3):
         spans, t = [], 1.0 + b

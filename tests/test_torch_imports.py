@@ -19,6 +19,8 @@ sys.modules["jax"] = None  # any import of jax now raises ImportError
 import ffsubsync_tpu_torch
 import ffsubsync_tpu_torch.media.segments
 import ffsubsync_tpu_torch.parallel.batch
+import ffsubsync_tpu_torch.parallel.vad_shard as vad_shard
+import numpy as np
 from ffsubsync_tpu_torch import make_parser, run
 from ffsubsync_tpu_torch.batch import sync_batch
 from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
@@ -30,9 +32,13 @@ def stamp(t):
 
 
 spans = [(2.0, 4.5), (6.0, 8.0), (10.5, 13.0), (15.0, 17.5)]
+audio = speech_signal_for_spans(20.0, spans, 12000, speech_level=0.35)
+pcm = np.clip(audio * 32767, -32768, 32767).astype(np.int16)
+sharded = vad_shard.make_sharded_detector(["cpu"] * 3, "weighted", 100, 12000, 0.0)(pcm)
+assert len(sharded) == 2000 and np.isfinite(np.asarray(sharded)).all()
 with tempfile.TemporaryDirectory() as d:
     wav = os.path.join(d, "ref.wav")
-    write_wav_i16(wav, speech_signal_for_spans(20.0, spans, 12000, speech_level=0.35), 12000)
+    write_wav_i16(wav, audio, 12000)
     srt = os.path.join(d, "in.srt")
     with open(srt, "w") as f:
         for i, (a, b) in enumerate(spans):  # cues 1.25 s early
@@ -60,8 +66,9 @@ print("NO_JAX_SYNC_OK", result["offset_seconds"])
 
 
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
-    """The fused, auditok, multi-segment and batch syncs of a WAV, with jax
-    made unimportable; none of the JAX package's device modules loads."""
+    """The fused, auditok, multi-segment and batch syncs of a WAV and the
+    sharded VAD, with jax made unimportable; none of the JAX package's
+    device modules loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run(
