@@ -9,12 +9,18 @@ Run from the repository root on a machine with a CUDA card and nvcc. It
 needs no network and no jax. Phases, each fatal on failure:
 
 1. probe the card (name, capability, power limit);
-2. build the CUDA kernels from ``ffsubsync_tpu_torch/csrc`` (timed);
+2. build the CUDA kernels from ``ffsubsync_tpu_torch/csrc`` (timed), print
+   ptxas's registers and spills, and check that the SASS (``cuobjdump
+   -sass``) holds tensor-core MMA instructions (HMMA or HGMMA);
 3. hold the frontend kernel against its plain PyTorch version on the card:
-   every rate tier with trained weights plus the legacy 48 kHz window,
-   every wire, a ragged window count, random and synthetic-speech PCM;
-   then at the main path's own shape, the first 45-minute pipeline chunk
-   of the synthetic 90-minute WAV as the port stages it, checked and timed;
+   every rate tier with trained weights plus the legacy 48 kHz window and
+   the 220- and 441-sample windows of 22.05 and 44.1 kHz audio, every
+   wire, a ragged window count, random and synthetic-speech PCM; then at
+   the main path's own shape, the first 45-minute pipeline chunk of the
+   synthetic 90-minute WAV as the port stages it, checked and timed beside
+   its plain version and one cuBLAS float32 product of the decoded frames
+   by the DFT basis (the yardstick, ``library_ms``), with its bounds; and
+   the kernel timed at every path's launch shape;
 4. the main path at full size: that synthetic 90-minute 12 kHz WAV synced
    to a shifted .srt through the port's CLI entry, with ``--vad fused`` and
    with the default VAD; the shift must be recovered within 0.15 s, the
@@ -51,9 +57,9 @@ needs no network and no jax. Phases, each fatal on failure:
    keeps the chunked path (the gate needs two or more cards).
 
 Every path is driven with the kernel's launch count set to 0 just before
-and read just after. The last two lines of standard output are one JSON
-object describing the kernels and one JSON object ``{"ok": true,
-"device": {...}}``.
+and read just after. The last three lines of standard output are one JSON
+object describing the kernels, the card's name and power limit, and one
+JSON object ``{"ok": true, "device": {...}}``.
 
 ``--measure`` runs phases 1 and 2, synthesizes the same WAV, and then
 prints what PERF.md cites: the wall seconds of repeated syncs of every
@@ -66,6 +72,7 @@ milliseconds of one ``_vad_program`` per mode on a 45-minute chunk, and a
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -125,14 +132,39 @@ def probe():
 
 
 def build():
+    """Phase 2. Returns (ptxas report lines, spilled bytes, tensor-core MMA
+    instructions in the SASS)."""
     from ffsubsync_tpu_torch.ops import _build
 
     result = _build.build_library()
     log("build: %.2f s -> %s" % (result.seconds, os.path.relpath(result.path)))
+    # one line per kernel instantiation: frontend_kernel<rows, warp
+    # columns, resident basis>, its registers and spilled bytes
+    ptxas, name, spills = [], "?", 0
     for line in result.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            args = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", entry.group(1))
+            name = "frontend_kernel<%s,%s,%s>" % args.groups() if args else entry.group(1)
+        for n in re.findall(r"(\d+) bytes spill", line):
+            spills += int(n)
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            ptxas.append("%s: %s registers" % (name, regs.group(1)))
+            log("  ptxas:", ptxas[-1])
+    log("ptxas: %d bytes of register spills over all kernels" % spills)
+    # the frontend kernel must run on the tensor cores: mma.sync is HMMA in
+    # SASS (wgmma would be HGMMA)
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", result.path], capture_output=True,
+                          text=True, check=True).stdout
+    mma = sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
+    log("sass: %d tensor-core MMA instructions (HMMA/HGMMA) in %s"
+        % (mma, os.path.basename(result.path)))
+    if mma == 0:
+        fail("no tensor-core MMA instruction in the kernels' SASS")
     _build.load_library()
+    return ptxas, spills, mma
 
 
 def compare(got, want, what):
@@ -161,14 +193,17 @@ def kernel_vs_plain(dev):
     import numpy as np
     import torch
 
-    from ffsubsync_tpu import native
-    from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
+    from ffsubsync_tpu_torch import native
+    from ffsubsync_tpu_torch.models.synth_data import speech_signal_for_spans
     from ffsubsync_tpu_torch.ops import frontend as fe
 
     rng = np.random.RandomState(0)
     worst = {k: 0.0 for k in TOLS}
     n_windows = 1037  # ragged: no multiple of any tile
-    for rate in (8000, 12000, 16000, 24000, 48000):
+    # the rate tiers with weights, the legacy 48 kHz window, and the windows
+    # of 22.05 and 44.1 kHz audio (which the analysis rate keeps as they
+    # are: 220 and an odd 441)
+    for rate in (8000, 12000, 16000, 24000, 48000, 22050, 44100):
         window = rate // SAMPLE_RATE
         n = n_windows * window
         spans = [(0.5, 3.0), (4.0, 7.5), (8.5, 10.0)]
@@ -197,8 +232,11 @@ def kernel_vs_plain(dev):
     return worst
 
 
-def median_ms(fn, n=15, warm=3):
-    """Median device milliseconds of ``fn()`` between two CUDA events."""
+def median_ms(fn, n=15, warm=3, calls=1):
+    """Median milliseconds per call of ``fn()`` between two CUDA events,
+    over ``n`` samples of ``calls`` calls back to back. With several calls
+    the host's work for the next call overlaps the card's work on this one,
+    as on a busy stream, so a kernel's time is its time on the card."""
     import numpy as np
     import torch
 
@@ -209,43 +247,128 @@ def median_ms(fn, n=15, warm=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        samples.append(start.elapsed_time(end))
+        samples.append(start.elapsed_time(end) / calls)
     return float(np.median(samples))
+
+
+KERNEL_CALLS = 10  # calls per timing sample of the frontend, plain and library
+
+
+# the frontend kernel's launch shape on each path, in windows of 12 kHz
+# mu-law int8 [T, 120]: a 45-minute pipeline chunk (fused, default), the
+# whole 90 minutes (auditok), a 60 s segment, a 44-minute batch episode and
+# one of 4 shards of the 90 minutes (sp)
+PATH_WINDOWS = {"fused": 270000, "auditok": 540000, "multiseg": 6000,
+                "batch": 264000, "sp": 135000}
+# peaks of one H100 SXM (NVIDIA's data sheet): float32 on the CUDA
+# cores, TF32 on the tensor cores, memory
+PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+
+
+def frontend_bounds(n_windows, window, frame_rate, row_bytes, n_cols):
+    """The least time the card could take for the frontend's work on
+    ``n_windows`` windows, in ms: operations at the float32 peak (what the
+    function needs as a DFT: one real DFT of ``F`` bins, a multiply-add by
+    cos and by sin per sample and bin, since the Hann spectrum follows from
+    the plain one's neighbours; that identity; both powers; the band sums;
+    a multiply-add per nonzero mel weight; the logs; the total power) and
+    bytes (the wire read once, 47 floats written per window). Beside them,
+    as a figure of the design and not a bound, the kernel's own 3xTF32
+    product [T, kp] x [kp, n_cols] at the TF32 peak."""
+    from ffsubsync_tpu_torch.ops import frontend as fe
+
+    f = window // 2 + 1
+    _, _, mel_weights = fe.mel_ranges(frame_rate, window)
+    bands = fe._band_ranges(frame_rate, window)
+    band_bins = sum(hi - lo for lo, hi in zip(bands[:fe.N_BANDS], bands[fe.N_BANDS:]))
+    per_window = (4 * window * f  # the DFT
+                  + 8 * f  # Hann from neighbours: an add, a scale, a multiply-add, x2
+                  + 6 * f  # two powers: a multiply and a multiply-add each
+                  + band_bins + 2 * len(mel_weights)
+                  + 2 * fe.N_MELS  # + 1e-6 and log
+                  + 2 * window + 1)  # the total power
+    ops = n_windows * per_window
+    nbytes = n_windows * (row_bytes + 47 * 4)
+    tf32 = 3 * 2 * n_windows * (-(-window // 8) * 8) * n_cols
+    return {"ops_ms": ops / PEAK_F32 * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+            "tf32_ms": tf32 / PEAK_TF32 * 1e3, "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def _staged(pcm, windows):
+    """The first ``windows`` 10 ms windows of ``pcm`` staged as the port
+    stages them, on the card."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops.features import prepare_staged_input
+
+    framed, rate, window, n = prepare_staged_input(pcm[: windows * (RATE // SAMPLE_RATE)],
+                                                   RATE, SAMPLE_RATE)
+    if (rate, window, n) != (RATE, RATE // SAMPLE_RATE, windows):
+        fail("staged %d windows as %r at %d Hz" % (windows, framed.shape, rate))
+    return torch.from_numpy(framed).to("cuda")
+
+
+def _shape(x):
+    return "[%d, %d] %s" % (x.shape[0], x.shape[1], str(x.dtype).replace("torch.", ""))
 
 
 def chunk_check_and_time(dev, pcm):
     """Phase 3 at the main path's shape: the first 45-minute chunk of the
     synthetic speech, staged as the port stages it (12 kHz, default mu-law
     wire), through kernel and plain version. Checks the two agree, then
-    times both. Returns (abs errors, kernel ms, plain ms)."""
+    times both, and one cuBLAS float32 product of the decoded frame by the
+    [W, 2F] cos | sin basis (the yardstick of the DFT product alone; the
+    port never calls it). Then times the kernel at every path's launch
+    shape. Returns a dict of what it measured."""
+    import numpy as np
     import torch
 
     from ffsubsync_tpu_torch.ops import frontend as fe
-    from ffsubsync_tpu_torch.ops.features import prepare_staged_input
 
-    framed, rate, window, n_windows = prepare_staged_input(
-        pcm[: CHUNK_SECONDS * RATE], RATE, SAMPLE_RATE
-    )
-    x = torch.from_numpy(framed).to(dev)
-    shape = "[%d, %d] %s" % (x.shape[0], x.shape[1], str(x.dtype).replace("torch.", ""))
-    if (rate, window, n_windows) != (RATE, RATE // SAMPLE_RATE, CHUNK_SECONDS * SAMPLE_RATE):
-        fail("45-min chunk staged as %s at %d Hz, %d windows" % (shape, rate, n_windows))
-    got = fe.fused_frontend(x, window, rate)
+    x = _staged(pcm, PATH_WINDOWS["fused"])
+    window = RATE // SAMPLE_RATE
+    got = fe.fused_frontend(x, window, RATE)
     torch.cuda.synchronize()
-    errs = compare(got, fe.frontend_plain(x, window, rate),
-                   "45-min speech chunk %s" % shape)
+    errs = compare(got, fe.frontend_plain(x, window, RATE), "45-min speech chunk " + _shape(x))
     del got
-    times = {"fused_frontend": [], "frontend_plain": []}
-    for fn in (fe.fused_frontend, fe.frontend_plain, fe.fused_frontend, fe.frontend_plain):
-        times[fn.__name__].append(median_ms(lambda: fn(x, window, rate)))
-    k_ms = min(times["fused_frontend"])
-    p_ms = min(times["frontend_plain"])
-    log("45-min chunk %s: kernel %.4f ms, plain %.4f ms (medians of 15, best "
-        "of 2 rounds: %s)" % (shape, k_ms, p_ms, times))
-    return errs, k_ms, p_ms
+    f = window // 2 + 1
+    basis = torch.from_numpy(fe.dft_basis(window, 2 * f)[:window].astype(np.float32)).to(dev)
+    decoded = fe.wire_to_frame(x, window)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("float32 matmuls may use TF32: the yardstick would not be float32")
+    times = {"fused_frontend": [], "frontend_plain": [], "library": []}
+    fns = {"fused_frontend": lambda: fe.fused_frontend(x, window, RATE),
+           "frontend_plain": lambda: fe.frontend_plain(x, window, RATE),
+           "library": lambda: torch.matmul(decoded, basis)}
+    for name in ("fused_frontend", "frontend_plain", "library") * 2:
+        times[name].append(median_ms(fns[name], calls=KERNEL_CALLS))
+    best = {k: min(v) for k, v in times.items()}
+    log("45-min chunk %s: kernel %.4f ms, plain %.4f ms, cuBLAS float32 [%d, %d] x [%d, %d] "
+        "%.4f ms (per call, %d calls back to back; medians of 15, best of 2 rounds: %s)"
+        % (_shape(x), best["fused_frontend"], best["frontend_plain"], x.shape[0], window,
+           window, 2 * f, best["library"], KERNEL_CALLS, times))
+    del decoded
+    by_path = {}
+    for label, windows in PATH_WINDOWS.items():
+        xp = x if windows == x.shape[0] else _staged(pcm, windows)
+        by_path[label] = median_ms(lambda: fe.fused_frontend(xp, window, RATE),
+                                   calls=KERNEL_CALLS)
+        log("  kernel at %-8s launch shape %s: %.4f ms" % (label, _shape(xp), by_path[label]))
+    cfg = fe.kernel_config(window, fe.wire_kind(x, window))
+    bounds = frontend_bounds(x.shape[0], window, RATE, x.shape[1], cfg.n_cols)
+    log("bounds at %s: %.4f ms of float32 operations (%.2f GFLOP at 67 TFLOP/s), %.4f ms "
+        "of bytes (%.1f MB at 3.35 TB/s); the kernel at %.1f%% of the larger; its own 3xTF32 "
+        "product %.4f ms at 495 TFLOP/s; config %r"
+        % (_shape(x), bounds["ops_ms"], bounds["gflop"], bounds["bytes_ms"], bounds["mbytes"],
+           100 * max(bounds["ops_ms"], bounds["bytes_ms"]) / best["fused_frontend"],
+           bounds["tf32_ms"], tuple(cfg)))
+    return {"errs": errs, "ms": best["fused_frontend"], "plain_ms": best["frontend_plain"],
+            "library_ms": best["library"], "ms_by_path": by_path, "bounds": bounds,
+            "config": cfg._asdict()}
 
 
 def _srt(spans, shift):
@@ -264,8 +387,8 @@ def synthesize(workdir):
     by ``TRUE_OFFSET_S``. Returns (wav path, int16 PCM, truth spans)."""
     import numpy as np
 
-    from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
-    from ffsubsync_tpu.utils.fixtures import write_wav_i16
+    from ffsubsync_tpu_torch.models.synth_data import speech_signal_for_spans
+    from ffsubsync_tpu_torch.utils.fixtures import write_wav_i16
 
     duration = MINUTES * 60.0
     rng = np.random.RandomState(0)
@@ -305,7 +428,7 @@ def _timed_sync(workdir, wav_path, label):
     Returns (result, wall seconds)."""
     import torch
 
-    from ffsubsync_tpu.cli import make_parser
+    from ffsubsync_tpu_torch.cli import make_parser
     from ffsubsync_tpu_torch import sync
 
     argv = _sync_argv(workdir, wav_path, label)
@@ -406,7 +529,7 @@ def _exact_score(labels, spec, offset):
     """The search's score of one (candidate, offset), in float64 on the host."""
     import numpy as np
 
-    from ffsubsync_tpu.ops.align import next_pow2
+    from ffsubsync_tpu_torch.ops.align import next_pow2
 
     n = next_pow2(len(labels) + spec.n_samples)
     ref = np.zeros(n)
@@ -520,7 +643,7 @@ def make_batch_jobs(workdir, pcm, spans):
     """Two 44-minute WAVs (the first 44 minutes of each of the synthetic
     WAV's halves) and one shifted .srt per job of ``BATCH_JOBS``, cues from
     its episode's own truth spans."""
-    from ffsubsync_tpu.utils.fixtures import write_wav_i16
+    from ffsubsync_tpu_torch.utils.fixtures import write_wav_i16
 
     wavs = []
     for h in range(2):
@@ -648,7 +771,7 @@ def sp_phase(pcm, spans):
     import numpy as np
     import torch
 
-    from ffsubsync_tpu.subs.raster import rasterize_intervals
+    from ffsubsync_tpu_torch.subs.raster import rasterize_intervals
     from ffsubsync_tpu_torch.models.neural_vad import load_net
     from ffsubsync_tpu_torch.ops import frontend as fe
     from ffsubsync_tpu_torch.ops import vad
@@ -921,7 +1044,7 @@ def main():
     opts = parser.parse_args()
     smi = probe()
     t_all = time.perf_counter()
-    build()
+    ptxas, spills, sass_mma = build()
     import torch
 
     dev = torch.device("cuda")
@@ -932,7 +1055,8 @@ def main():
             log(smi)
             return
         worst = kernel_vs_plain(dev)
-        chunk_errs, k_ms, p_ms = chunk_check_and_time(dev, pcm)
+        chunk = chunk_check_and_time(dev, pcm)
+        chunk_errs = chunk["errs"]
         results = main_path(workdir, wav_path)
         agree = labels_card_vs_cpu(pcm)
         results["auditok"] = auditok_phase(workdir, wav_path, pcm, dev)
@@ -968,8 +1092,26 @@ def main():
                 "auditok_max_abs_err": auditok_errs,
                 "multiseg_max_abs_err": multiseg_errs,
                 "sp_shard_max_abs_err": shard_errs,
-                "ms": k_ms,
-                "plain_ms": p_ms,
+                # at the 45-minute chunk [270000, 120] int8 (CUDA events)
+                "ms": chunk["ms"],
+                "plain_ms": chunk["plain_ms"],
+                # the larger of the float32 operations the function needs
+                # at 67 TFLOP/s and the bytes at 3.35 TB/s (frontend_bounds)
+                "bound_ms": max(chunk["bounds"]["ops_ms"], chunk["bounds"]["bytes_ms"]),
+                "bound_by": ("operations" if chunk["bounds"]["ops_ms"]
+                             >= chunk["bounds"]["bytes_ms"] else "bytes"),
+                "bound_ops_ms": chunk["bounds"]["ops_ms"],
+                "bound_bytes_ms": chunk["bounds"]["bytes_ms"],
+                "bound_tf32_ms": chunk["bounds"]["tf32_ms"],
+                # torch.matmul float32 of the decoded frame by the [W, 2F]
+                # basis (cuBLAS; never called by the port)
+                "library_ms": chunk["library_ms"],
+                "ms_by_path": chunk["ms_by_path"],
+                "windows_by_path": PATH_WINDOWS,
+                "config": chunk["config"],
+                "ptxas": ptxas,
+                "spill_bytes": spills,
+                "sass_mma": sass_mma,
                 # launches of each path's own run (phases 4 and 6-9; "sp" is
                 # one sharded call on 4 shards, "fused_sp_env" the CLI sync
                 # with FFS_TPU_SP_VAD=1)

@@ -5,8 +5,10 @@ Same CLI, same result dict, same offsets as ``ffsubsync_tpu``; the device
 work runs in PyTorch, and the fused audio frontend is a CUDA kernel written
 for Hopper (``csrc/frontend.cu``). ``FFS_TORCH_DEVICE`` (``cuda`` default,
 or ``cpu``) picks the device (:mod:`ffsubsync_tpu_torch.device`). The
-package never imports jax; it reuses the JAX package's jax-free host
-modules (CLI, subtitles, WAV reader, native staging, host aligner).
+package stands alone: it imports neither jax nor ``ffsubsync_tpu``. Its
+host modules (CLI, subtitles, WAV reader, native staging, host aligner) are
+copies of the JAX package's under the same module paths, and it ships its
+own host library source (``csrc/ffs_native.cpp``) and neural-VAD weights.
 
 Public API as in ``ffsubsync_tpu/__init__.py``: ``main``, ``run``,
 ``make_parser``, ``ProgressInfo``, ``__version__``; heavy modules load
@@ -15,7 +17,7 @@ lazily.
 import logging
 import sys
 
-from ffsubsync_tpu.version import __version__  # noqa: F401
+from ffsubsync_tpu_torch.version import __version__  # noqa: F401
 
 try:
     from rich.console import Console
@@ -29,8 +31,8 @@ logging.basicConfig(format="%(message)s", handlers=[handler], level=logging.INFO
 _LAZY = {
     "main": ("ffsubsync_tpu_torch.sync", "main"),
     "run": ("ffsubsync_tpu_torch.sync", "run"),
-    "make_parser": ("ffsubsync_tpu.cli", "make_parser"),
-    "ProgressInfo": ("ffsubsync_tpu.utils.progress", "ProgressInfo"),
+    "make_parser": ("ffsubsync_tpu_torch.cli", "make_parser"),
+    "ProgressInfo": ("ffsubsync_tpu_torch.utils.progress", "ProgressInfo"),
 }
 
 __all__ = ["main", "run", "make_parser", "ProgressInfo", "__version__"]

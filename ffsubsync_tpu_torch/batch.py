@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ffsubsync_tpu.constants import (
+from ffsubsync_tpu_torch.constants import (
     DEFAULT_FRAME_RATE,
     DEFAULT_MAX_FRAMERATE_DEVIATION,
     DEFAULT_MAX_OFFSET_SECONDS,
@@ -49,7 +49,7 @@ from ffsubsync_tpu.constants import (
     SAMPLE_RATE,
     SUBTITLE_EXTENSIONS,
 )
-from ffsubsync_tpu.subs.transforms import shift_document
+from ffsubsync_tpu_torch.subs.transforms import shift_document
 
 logger = logging.getLogger(__name__)
 
@@ -59,7 +59,7 @@ def _make_ref_source(reference: str, vad: str, frame_rate: int,
     """Reference dispatch via this port's single-file
     ``make_reference_extractor``; a minimal argparse-style namespace
     carries the per-batch options."""
-    from ffsubsync_tpu.validation import reference_format
+    from ffsubsync_tpu_torch.validation import reference_format
     from ffsubsync_tpu_torch.sync import make_reference_extractor
 
     opts = dict(ref_options or {})
@@ -126,9 +126,9 @@ def sync_batch(
     reference-extraction settings (pgs_ref_stream, multi_segment_sync,
     segment_count, start_seconds, ...) to ``make_reference_extractor``.
     """
-    from ffsubsync_tpu.speech import make_subtitle_speech_source
-    from ffsubsync_tpu.subs.parser import make_subtitle_parser
-    from ffsubsync_tpu.sync import assess_alignment_quality
+    from ffsubsync_tpu_torch.speech import make_subtitle_speech_source
+    from ffsubsync_tpu_torch.subs.parser import make_subtitle_parser
+    from ffsubsync_tpu_torch.sync import assess_alignment_quality
     from ffsubsync_tpu_torch.parallel.batch import BatchAligner
 
     for reference, srtin, srtout in jobs:
@@ -227,7 +227,7 @@ def sync_batch(
         # then narrows its own bracket around its argmax. The final round's
         # candidates join that job's selection pool, as the single-file gss
         # slot does.
-        from ffsubsync_tpu.sync import (
+        from ffsubsync_tpu_torch.sync import (
             GSS_TOL,
             MAX_FRAMERATE_RATIO,
             MIN_FRAMERATE_RATIO,

@@ -4,7 +4,7 @@
 Counterpart of ``ffsubsync_tpu/media/audio.py::VideoSpeechSource``, bound
 to this port's detectors (:func:`ffsubsync_tpu_torch.ops.vad.make_detector`)
 on an explicit ``device``. ffmpeg decodes containers to s16le PCM on a pipe;
-WAV files are read in-process (``ffsubsync_tpu.media.wav``). In buffered
+WAV files are read in-process (``ffsubsync_tpu_torch.media.wav``). In buffered
 mode (the default) PCM is dispatched to the device in pipeline chunks as
 it streams in, and the labels stay on the device for the aligner. With
 ``FFS_TPU_SP_VAD=1`` and at least two GPUs, the whole buffer instead runs
@@ -21,10 +21,10 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from ffsubsync_tpu.constants import is_remote_url
-from ffsubsync_tpu.media.ffmpeg import ffmpeg_bin_path, probe_duration, subprocess_args
-from ffsubsync_tpu.media.wav import WavReader, is_wav_file
-from ffsubsync_tpu.utils.progress import ProgressInfo, ProgressReporter
+from ffsubsync_tpu_torch.constants import is_remote_url
+from ffsubsync_tpu_torch.media.ffmpeg import ffmpeg_bin_path, probe_duration, subprocess_args
+from ffsubsync_tpu_torch.media.wav import WavReader, is_wav_file
+from ffsubsync_tpu_torch.utils.progress import ProgressInfo, ProgressReporter
 from ffsubsync_tpu_torch.ops.vad import _pipeline_chunk_samples, make_detector
 from ffsubsync_tpu_torch.parallel.vad_shard import maybe_sharded_detector
 
@@ -80,7 +80,7 @@ class VideoSpeechSource:
     # -- embedded-subtitle fast path ------------------------------------
 
     def try_fit_using_embedded_subs(self, fname: str) -> None:
-        from ffsubsync_tpu.media.embedded import fit_embedded_subs
+        from ffsubsync_tpu_torch.media.embedded import fit_embedded_subs
 
         self.video_speech_results_ = fit_embedded_subs(
             fname,
@@ -368,6 +368,6 @@ class VideoSpeechSource:
     def prefer_host_align(self) -> bool:
         """Host-score only when the embedded-subs path produced cue geometry
         (no audio pipeline ran); audio labels live on the device."""
-        from ffsubsync_tpu.subs.raster import RasterSpec
+        from ffsubsync_tpu_torch.subs.raster import RasterSpec
 
         return isinstance(self.video_speech_results_, RasterSpec)

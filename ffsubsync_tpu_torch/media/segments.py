@@ -17,9 +17,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ffsubsync_tpu.constants import is_remote_url
-from ffsubsync_tpu.media.ffmpeg import probe_duration
-from ffsubsync_tpu.media.wav import WavReader, is_wav_file
+from ffsubsync_tpu_torch.constants import is_remote_url
+from ffsubsync_tpu_torch.media.ffmpeg import probe_duration
+from ffsubsync_tpu_torch.media.wav import WavReader, is_wav_file
 from ffsubsync_tpu_torch.media.audio import VideoSpeechSource
 
 logger = logging.getLogger(__name__)

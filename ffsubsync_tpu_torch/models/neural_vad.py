@@ -2,7 +2,8 @@
 """In-tree neural VAD (the "silero-class" detector) as a PyTorch module.
 
 Counterpart of ``ffsubsync_tpu/models/neural_vad.py``, same architecture
-and the same shipped weights (``ffsubsync_tpu/models/weights/*.npz``):
+and the same trained weights (``models/weights/*.npz``, byte-equal copies
+of ``ffsubsync_tpu/models/weights/*.npz`` shipped with this package):
 log-mel [T, 40] plus three engineered temporal channels
 (:func:`_aux_channels`) → dense 43→96 → seven residual dilated temporal
 convolutions (kernel 5, dilations 1…64) → dense 96→1 → sigmoid. The JAX
@@ -46,9 +47,7 @@ assert (KERNEL // 2) * sum(DILATIONS) + AUX_RADIUS <= CONTEXT, (
 
 
 def _weights_dir() -> str:
-    import ffsubsync_tpu.models
-
-    return os.path.join(os.path.dirname(ffsubsync_tpu.models.__file__), "weights")
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights")
 
 
 def expected_param_shapes() -> Dict[str, Tuple[int, ...]]:

@@ -111,10 +111,11 @@ def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library().path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ffs_frontend_launch.argtypes = [
-        ptr, i32, i32, i32, i32, ptr, ctypes.POINTER(ctypes.c_int),
-        ptr, ptr, ptr, ptr,
+        ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
     ]
     lib.ffs_frontend_launch.restype = i32
+    lib.ffs_frontend_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.ffs_frontend_config.restype = i32
     lib.ffs_cuda_error_string.argtypes = [i32]
     lib.ffs_cuda_error_string.restype = ctypes.c_char_p
     return lib

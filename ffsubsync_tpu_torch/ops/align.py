@@ -1,27 +1,138 @@
 # -*- coding: utf-8 -*-
-"""FFT alignment search: the host path of the JAX package, the device path
-in PyTorch (counterpart of ``ffsubsync_tpu/ops/align.py::align_candidates``).
+"""FFT alignment search: the host path and the device path in PyTorch
+(counterpart of ``ffsubsync_tpu/ops/align.py``).
 
 Offset conventions, the ``(-max, max]`` window, the descending-offset
-tie-break and the exact rescore are the reference's; the host path and its
-helpers are imported from it unchanged.
+tie-break and the exact rescore are the reference's. The host half below
+(``Alignment`` through ``_ref_length``) is a verbatim copy of the JAX
+package's host code; :func:`align_candidates` sends the device half to
+:mod:`ffsubsync_tpu_torch.ops.align_device`.
 """
-from typing import List, Optional, Sequence, Tuple
+import logging
+import math
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ffsubsync_tpu.ops.align import (
-    Alignment,
-    FailedToFindAlignmentException,
-    RefLike,
-    _align_candidates_host,
-    _offset_window,
-    _ref_length,
-    _resolve_host_align,
-    next_pow2,
-)
-from ffsubsync_tpu.subs.raster import RasterSpec
+from ffsubsync_tpu_torch.subs.raster import RasterSpec
+
+logger = logging.getLogger(__name__)
+
+
+class FailedToFindAlignmentException(Exception):
+    pass
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, math.ceil(math.log2(max(1, n))))
+
+
+@dataclass
+class Alignment:
+    """Result of scoring one candidate: best (score, offset_samples)."""
+
+    score: float
+    offset: int
+
+
+def _offset_window(
+    n: int, n_sub: int, max_offset_samples: Optional[int]
+) -> Tuple[int, int]:
+    """(largest allowed offset, count) for one candidate.
+
+    The representable offsets of an n-point circular correlation with an
+    n_sub-long candidate are ``[-n_sub, n - 1 - n_sub]``; masking intersects
+    that with ``(-max, max]``.
+    """
+    if max_offset_samples is None:
+        hi = n - 1 - n_sub
+        lo = -n_sub
+    else:
+        hi = min(max_offset_samples, n - 1 - n_sub)
+        lo = max(-max_offset_samples + 1, -n_sub)
+    return hi, hi - lo + 1
+
+
+RefLike = Union[RasterSpec, np.ndarray]
+
+
+def _resolve_host_align(prefer_host: bool) -> bool:
+    """Whether to score candidates on the host instead of the device.
+
+    ``FFS_TPU_HOST_ALIGN=1``/``0`` force the choice; otherwise the caller's
+    preference stands. The host path exists because the alignment problem is
+    host-sized whenever no audio pipeline is running: a movie-length 100 Hz
+    signal is ~0.5M samples, a few rfft calls in numpy. Initializing a device
+    session just for that costs orders of magnitude more than the math —
+    especially on remote-attached TPU frontends — and it is exactly what the
+    reference itself does on the host (ffsubsync/aligners.py:70-74).
+    """
+    env = os.environ.get("FFS_TPU_HOST_ALIGN")
+    if env == "1":
+        return True
+    if env == "0":
+        return False
+    return prefer_host
+
+
+def _host_pm(signal_or_spec: RefLike, n: int) -> np.ndarray:
+    """±1-map a reference or candidate onto an FFT buffer of length *n*."""
+    pm = np.zeros(n, np.float64)
+    if isinstance(signal_or_spec, RasterSpec):
+        raw = signal_or_spec.materialize()
+    else:
+        raw = np.asarray(signal_or_spec, np.float64)
+    pm[: len(raw)] = 2.0 * raw - 1.0
+    return pm
+
+
+def _align_candidates_host(
+    ref: RefLike,
+    candidates: Sequence[RasterSpec],
+    max_offset_samples: Optional[int],
+    n: int,
+) -> List["Alignment"]:
+    """Numpy mirror of the device kernel — same contract surface.
+
+    Candidates are scored one at a time (a [K, n] float64 batch would cost
+    ~100 MB of host RAM for nothing; K is single-digit). Offsets are gathered
+    in descending order so ``np.argmax``'s first-maximum tie-break matches the
+    device kernel and the reference (aligners.py:41-48).
+
+    Precision note: the host FFT runs in float64 (numpy's native width — and
+    the width the reference itself correlates at) while the device kernel
+    uses float32; the reported *score* is an exact dot product on both
+    paths, so only the argmax over the raw correlation can see rounding.
+    On a mathematically exact tie this path resolves by the descending-
+    offset ordering (pinned by tests/test_alignment.py::
+    test_exact_tie_breaks_same_on_both_paths); the device kernel's pick
+    among exactly-tied offsets is float32-FFT-rounding-determined — real
+    audio correlations never tie exactly, and cross-candidate selection is
+    protected by the exact rescore either way.
+    """
+    ref_pm = _host_pm(ref, n)
+    ref_f = np.fft.rfft(ref_pm)
+    out: List[Alignment] = []
+    for cand in candidates:
+        sub_pm = _host_pm(cand, n)
+        c2 = np.fft.irfft(np.conj(np.fft.rfft(sub_pm)) * ref_f, n=n)
+        hi, cnt = _offset_window(n, cand.n_samples, max_offset_samples)
+        # cnt can be 0 (max_offset_seconds=0): the device kernel degrades to
+        # scoring the single masked offset `hi` — mirror that exactly
+        offs = hi - np.arange(max(cnt, 1))
+        best_off = int(offs[int(np.argmax(c2[np.mod(offs, n)]))])
+        score = float(np.dot(sub_pm, np.roll(ref_pm, -best_off)))
+        out.append(Alignment(score, best_off))
+    return out
+
+
+def _ref_length(ref: RefLike) -> int:
+    if isinstance(ref, RasterSpec):
+        return ref.n_samples
+    return int(len(ref))
 
 
 def align_candidates(

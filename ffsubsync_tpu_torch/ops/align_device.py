@@ -10,7 +10,7 @@ re-score that offset with an exact dot product.
 import numpy as np
 import torch
 
-from ffsubsync_tpu.subs.raster import RasterSpec
+from ffsubsync_tpu_torch.subs.raster import RasterSpec
 
 
 def _pm_raster(starts, ends, weights, n_samples, n: int) -> torch.Tensor:

@@ -84,8 +84,7 @@ def prepare_staged_input(
     Returns ``(framed [n_windows, width] np, analysis_rate, window,
     n_windows)``; the last window is zero-padded (wire silence).
     """
-    from ffsubsync_tpu import native
-    from ffsubsync_tpu_torch.ops.frontend import mulaw_encode_host
+    from ffsubsync_tpu_torch import native
 
     pcm = np.asarray(pcm_i16)
     rate = analysis_rate(frame_rate, sample_rate)
@@ -100,26 +99,14 @@ def prepare_staged_input(
     n_windows = max(1, int(np.ceil(n_dec / float(window))))
     wire = os.environ.get("FFS_TPU_WIRE", "mulaw")
     if wire == "mulaw6" and window % 4 == 0:
-        # native's own numpy fallback here is jax-free
-        return (
-            native.stage_for_device_p6(pcm, decim_stages, window, n_windows),
-            frame_rate, window, n_windows,
-        )
-    mulaw = wire in ("mulaw", "mulaw6")
-    # native.stage_for_device's own numpy fallback imports the JAX package's
-    # Pallas module, so it is called only where the compiled pass exists
-    if mulaw and getattr(native._lib, "ffs_stage_i8", None) is not None:
-        return (
-            native.stage_for_device(pcm, decim_stages, window, window, n_windows),
-            frame_rate, window, n_windows,
-        )
-    if pcm.dtype != np.int16:
-        pcm = pcm.astype(np.int16)
-    for _ in range(decim_stages):
-        pcm = native.decimate2(pcm)
-    flat = np.zeros(n_windows * window, np.int8 if mulaw else np.int16)
-    flat[: len(pcm)] = mulaw_encode_host(pcm) if mulaw else pcm
-    return flat.reshape(n_windows, window), frame_rate, window, n_windows
+        framed = native.stage_for_device_p6(pcm, decim_stages, window, n_windows)
+    elif wire in ("mulaw", "mulaw6"):
+        framed = native.stage_for_device(pcm, decim_stages, window, window, n_windows)
+    else:
+        for _ in range(decim_stages):
+            pcm = native.decimate2(pcm)
+        framed = native.frame_for_device(pcm, window, window, n_windows, mulaw=False)
+    return framed, frame_rate, window, n_windows
 
 
 def compute_frontend(

@@ -19,11 +19,10 @@ dtype and row width: int16 samples ``[T, window]``; µ-law int8 codes
 ``[T, window]``; packed 6-bit µ-law ``[T, window*3//4]`` (4 biased codes
 per 3 bytes, silence = code 31).
 """
-import ctypes
 import functools
 import math
 import threading
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -157,36 +156,134 @@ def frontend_plain(
     return logmel, bands, total
 
 
-def _band_ranges(frame_rate: int, window: int) -> Tuple[int, ...]:
-    """The band selector as (6 first bins, 6 end bins): each band is one
-    contiguous run of rfft bins, so the kernel sums index ranges."""
-    sel = band_selector_matrix(window // 2 + 1, frame_rate, window)
+def _column_runs(mat: np.ndarray, what: str) -> Tuple[list, list]:
+    """(first rows, ends) of each column's nonzero entries, which must be
+    one contiguous run of rfft bins; (0, 0) for an empty column."""
     lo, hi = [], []
-    for b in range(N_BANDS):
-        idx = np.nonzero(sel[:, b])[0]
+    for j in range(mat.shape[1]):
+        idx = np.nonzero(mat[:, j])[0]
         if len(idx) and idx[-1] - idx[0] + 1 != len(idx):
-            raise ValueError("band %d is not a contiguous bin range" % b)
+            raise ValueError("%s %d is not a contiguous bin range" % (what, j))
         lo.append(int(idx[0]) if len(idx) else 0)
         hi.append(int(idx[-1]) + 1 if len(idx) else 0)
+    return lo, hi
+
+
+def _band_ranges(frame_rate: int, window: int) -> Tuple[int, ...]:
+    """The band selector as (6 first bins, 6 end bins): the kernel sums
+    index ranges."""
+    lo, hi = _column_runs(band_selector_matrix(window // 2 + 1, frame_rate, window), "band")
     return tuple(lo + hi)
 
 
-@functools.lru_cache(maxsize=32)
-def _kernel_consts(frame_rate: int, window: int, device: torch.device):
-    """float32 [cos W | sin W | hann W | mel F*40] on ``device``, and the
-    band ranges as a ctypes int[12]. Twiddles and Hann are built in float64
-    and rounded once, as the TPU kernel's DFT matrices were."""
+# csrc/frontend.cu's struct Tables, the layout of the buffer kernel_tables
+# builds: mel lo, hi and offset (40 each), band lo and hi (6 each), then
+# kMaxMelWeights float weights
+_TABLES_BYTES = (3 * N_MELS + 2 * N_BANDS + 512) * 4
+
+
+class KernelConfig(NamedTuple):
+    rows: int  # windows per tile
+    warp_cols: int  # basis columns per warp and pass
+    n_cols: int  # the cos | sin basis width, 2 * n_freqs padded
+    resident: bool  # the basis stays in shared memory
+    smem: int  # bytes of shared memory per block
+
+
+def _check(lib, status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError("frontend kernel %s failed: %s (cudaError %d)"
+                           % (what, lib.ffs_cuda_error_string(status).decode(), status))
+
+
+def kernel_config(window: int, wire: int) -> KernelConfig:
+    """The tile shape the kernel takes for ``window`` and ``wire`` on the
+    current CUDA device (``csrc/frontend.cu``'s ``choose_config``: the
+    first shape that fits one block's shared memory, with the basis
+    resident if any fits so). Builds the library if it is not built yet."""
+    import ctypes
+
+    from ffsubsync_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    out = (ctypes.c_int * 5)()
+    _check(lib, lib.ffs_frontend_config(window, wire, out), "config")
+    return KernelConfig(out[0], out[1], out[2], bool(out[3]), out[4])
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """Round to TF32 (10 mantissa bits, ties away from zero, as
+    ``cvt.rna.tf32.f32``), kept in float32."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def dft_basis(window: int, n_cols: int) -> np.ndarray:
+    """float64 ``[kp, n_cols]``: cos | sin of ``2 pi t k / window`` over
+    ``/32768`` for ``k < n_freqs`` (``kp`` = window rounded up to 8), zero
+    padding elsewhere. ``frames @ basis`` gives ``[C | S]``, ``X = C - iS``."""
     n_freqs = window // 2 + 1
-    ang = 2.0 * np.pi * np.arange(window, dtype=np.float64) / window
-    hann = 0.5 - 0.5 * np.cos(ang)
-    table = np.concatenate(
-        [
-            np.cos(ang), np.sin(ang), hann,
-            mel_filterbank(n_freqs, frame_rate, N_MELS).reshape(-1),
-        ]
-    ).astype(np.float32)
-    bands = (ctypes.c_int * (2 * N_BANDS))(*_band_ranges(frame_rate, window))
-    return torch.from_numpy(table).to(device), bands
+    kp = -(-window // 8) * 8
+    t = np.arange(window)[:, None]
+    ang = 2.0 * np.pi * ((t * np.arange(n_freqs)[None, :]) % window) / window
+    basis = np.zeros((kp, n_cols))
+    basis[:window, :n_freqs] = np.cos(ang) / 32768.0
+    basis[:window, n_freqs: 2 * n_freqs] = np.sin(ang) / 32768.0
+    return basis
+
+
+def split_basis(window: int, n_cols: int) -> np.ndarray:
+    """The basis as the kernel reads it: float32 ``[kp/8, n_cols/8, 32, 4]``
+    in mma B-fragment order, lane ``(g, tig)`` of k-step ``ks`` and column
+    tile ``nt`` holding rows ``8ks + 2tig`` and ``8ks + 2tig + 1`` of
+    column ``8nt + g`` (the samples the kernel puts in fragment columns
+    ``tig`` and ``tig + 4``: adjacent, so one load fetches both), each as
+    (hi, hi, lo, lo) with ``hi = tf32(b)`` and ``lo = tf32(b - hi)``."""
+    basis = dft_basis(window, n_cols)
+    hi = _tf32(basis)
+    lo = _tf32(basis - hi)
+    lane = np.arange(32)
+    k = np.arange(basis.shape[0] // 8)[:, None, None] * 8 + 2 * (lane % 4)[None, None, :]
+    n = np.arange(n_cols // 8)[None, :, None] * 8 + (lane // 4)[None, None, :]
+    return np.stack([hi[k, n], hi[k + 1, n], lo[k, n], lo[k + 1, n]], axis=-1)
+
+
+def mel_ranges(frame_rate: int, window: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The mel filterbank as contiguous nonzero bin runs: (first bins [40],
+    ends [40], weights of every run back to back). The kernel sums only
+    these (a triangular filter's support; at most two filters per bin)."""
+    fb = mel_filterbank(window // 2 + 1, frame_rate, N_MELS)
+    lo, hi = _column_runs(fb, "mel filter")
+    weights = [fb[a:b, m] for m, (a, b) in enumerate(zip(lo, hi))]
+    return np.array(lo), np.array(hi), np.concatenate(weights).astype(np.float32)
+
+
+def kernel_tables(frame_rate: int, window: int) -> np.ndarray:
+    """The kernel's struct Tables as int32: each mel filter's nonzero bin
+    run (first, end, offset of its weights), the band ranges, then the
+    weights as float32 bits."""
+    lo, hi, weights = mel_ranges(frame_rate, window)
+    offsets = np.concatenate([[0], np.cumsum(hi - lo)[:-1]])
+    tables = np.zeros(_TABLES_BYTES // 4, np.int32)
+    tables[: 3 * N_MELS] = np.concatenate([lo, hi, offsets])
+    tables[3 * N_MELS: 3 * N_MELS + 2 * N_BANDS] = _band_ranges(frame_rate, window)
+    tables[3 * N_MELS + 2 * N_BANDS:].view(np.float32)[: len(weights)] = weights
+    return tables
+
+
+class _Consts(NamedTuple):
+    n_cols: int  # the basis width the kernel's configuration wants
+    basis: torch.Tensor  # split_basis on the device
+    tables: torch.Tensor  # kernel_tables on the device
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_consts(frame_rate: int, window: int, wire: int, device: torch.device) -> _Consts:
+    with torch.cuda.device(device):
+        n_cols = kernel_config(window, wire).n_cols
+    basis = torch.from_numpy(np.ascontiguousarray(split_basis(window, n_cols)))
+    tables = torch.from_numpy(kernel_tables(frame_rate, window))
+    return _Consts(n_cols, basis.to(device), tables.to(device))
 
 
 def fused_frontend(
@@ -215,19 +312,17 @@ def fused_frontend(
     total = torch.empty((t,), dtype=torch.float32, device=dev)
     if t == 0:
         return logmel, bands, total
-    consts, band_ranges = _kernel_consts(frame_rate, window, dev)
+    consts = _kernel_consts(frame_rate, window, wire, dev)
+    if framed.data_ptr() % 16:
+        framed = framed.clone()  # the kernel streams 16-byte chunks
     with torch.cuda.device(dev):
         status = lib.ffs_frontend_launch(
-            framed.data_ptr(), wire, t, window, window // 2 + 1,
-            consts.data_ptr(), band_ranges, logmel.data_ptr(),
-            bands.data_ptr(), total.data_ptr(),
+            framed.data_ptr(), wire, t, window, consts.n_cols,
+            consts.basis.data_ptr(), consts.tables.data_ptr(),
+            logmel.data_ptr(), bands.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if status != 0:
-        raise RuntimeError(
-            "frontend kernel launch failed: %s (cudaError %d)"
-            % (lib.ffs_cuda_error_string(status).decode(), status)
-        )
+    _check(lib, status, "launch")
     with _LAUNCHES_LOCK:
         fused_frontend.launches += 1
     return logmel, bands, total

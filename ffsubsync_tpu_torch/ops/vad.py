@@ -471,8 +471,8 @@ def tokenize_validity(
     """auditok-class stream tokenization of a boolean validity string:
     the native C++ state machine where ``libffs_native`` is built, else
     :func:`_tokenize_validity_py` (``ffsubsync_tpu/ops/vad.py::
-    tokenize_validity``, whose own fallback imports jax)."""
-    from ffsubsync_tpu import native
+    tokenize_validity``)."""
+    from ffsubsync_tpu_torch import native
 
     if native.AVAILABLE:
         return native.tokenize(valid, min_length, max_length, max_continuous_silence)

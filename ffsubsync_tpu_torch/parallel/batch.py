@@ -15,8 +15,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ffsubsync_tpu.ops.align import Alignment, next_pow2
-from ffsubsync_tpu.subs.raster import RasterSpec
+from ffsubsync_tpu_torch.ops.align import Alignment, next_pow2
+from ffsubsync_tpu_torch.subs.raster import RasterSpec
 from ffsubsync_tpu_torch.device import get_device, local_mesh
 from ffsubsync_tpu_torch.ops.align import pack_candidates
 from ffsubsync_tpu_torch.ops.align_device import align_specs, prepare_ref_pm

@@ -2,10 +2,11 @@
 """Sync orchestration for the PyTorch port: reference dispatch, candidate
 search, output (counterpart of ``ffsubsync_tpu/sync.py``).
 
-The host-side helpers — argument validation, candidate-source factories,
-the framerate grid, the quality gate, gss bracket math, logging and test
-case plumbing — are the JAX package's own, imported unchanged. What differs
-is where the device work goes: audio references run through this port's
+The host-side helpers (argument validation, candidate-source factories,
+the framerate grid, the quality gate, gss bracket math, subtitle-stream
+extraction, logging and test-case plumbing) are verbatim copies of the JAX
+package's. What differs is where the device work goes: audio references
+run through this port's
 :class:`~ffsubsync_tpu_torch.media.audio.VideoSpeechSource` on the device
 that ``FFS_TORCH_DEVICE`` names (resolved once, in
 :func:`make_reference_extractor`), and candidates are scored by this port's
@@ -15,42 +16,146 @@ and PGS references stay on the host, as in the reference.
 import argparse
 import logging
 import os
+import subprocess
 import sys
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from ffsubsync_tpu.cli import make_parser
-from ffsubsync_tpu.constants import (
+from ffsubsync_tpu_torch.cli import make_parser
+from ffsubsync_tpu_torch.constants import (
     DEFAULT_ENCODING,
     DEFAULT_VAD,
+    FRAMERATE_RATIOS,
     SAMPLE_RATE,
     SUBTITLE_EXTENSIONS,
 )
-from ffsubsync_tpu.ops.align import Alignment, FailedToFindAlignmentException
-from ffsubsync_tpu.speech import DeserializeSpeechSource, SubtitleSpeechSource
-from ffsubsync_tpu.subs.transforms import merge_documents, shift_document
-from ffsubsync_tpu.sync import (  # jax-free host helpers
-    GSS_TOL,
-    MAX_FRAMERATE_RATIO,
-    MIN_FRAMERATE_RATIO,
-    _npy_savename,
-    _resolve_srtout,
-    _setup_logging,
-    assess_alignment_quality,
-    extract_subtitles_from_reference,
-    get_framerate_ratios_to_try,
-    get_srt_source_maker,
-    gss_grid,
-    gss_narrow,
-    validate_and_transform_args,
+from ffsubsync_tpu_torch.media.ffmpeg import ffmpeg_bin_path
+from ffsubsync_tpu_torch.ops.align import (
+    Alignment,
+    FailedToFindAlignmentException,
+    align_candidates,
 )
-from ffsubsync_tpu.utils.archive import make_test_case
-from ffsubsync_tpu.utils.progress import ProgressInfo
-from ffsubsync_tpu.validation import reference_format as _ref_format
-from ffsubsync_tpu_torch.ops.align import align_candidates
+from ffsubsync_tpu_torch.speech import (
+    DeserializeSpeechSource,
+    SubtitleSpeechSource,
+    make_subtitle_speech_source,
+)
+from ffsubsync_tpu_torch.subs.parser import make_subtitle_parser
+from ffsubsync_tpu_torch.subs.transforms import merge_documents, shift_document
+from ffsubsync_tpu_torch.utils.archive import make_test_case, session_log_path
+from ffsubsync_tpu_torch.utils.progress import ProgressInfo
+from ffsubsync_tpu_torch.validation import (
+    reference_format as _ref_format,
+    resolve_output_path as _resolve_srtout,
+    speech_archive_path,
+    validate_args,
+    validate_file_permissions,
+)
 
 logger: logging.Logger = logging.getLogger(__name__)
+
+MIN_FRAMERATE_RATIO = 0.9
+MAX_FRAMERATE_RATIO = 1.1
+
+
+def get_srt_source_maker(
+    args: argparse.Namespace, srtin: Optional[str]
+) -> Callable[[Optional[float]], Any]:
+    """Candidate-source factory sharing one caching parser per input file."""
+    if srtin is None:
+        srtin_format = "srt"
+    else:
+        srtin_format = os.path.splitext(srtin)[-1][1:]
+    parser = make_subtitle_parser(fmt=srtin_format, caching=True, **args.__dict__)
+    return lambda scale_factor: make_subtitle_speech_source(
+        scale_factor,
+        fmt=srtin_format,
+        encoding=args.encoding,
+        max_subtitle_seconds=args.max_subtitle_seconds,
+        start_seconds=args.start_seconds,
+        parser=parser,
+    )
+
+
+def get_framerate_ratios_to_try(args: argparse.Namespace) -> List[Optional[float]]:
+    """Candidate framerate scale factors for the grid search.
+
+    Each known conversion ratio is tried in both directions (the subtitles may
+    be faster OR slower than the media); a trailing ``None`` slot requests the
+    continuous gss refinement when ``--gss`` is on. Empty under
+    ``--no-fix-framerate``. The ORDER is contract surface, not style: the
+    best candidate is chosen by first-maximum, so on an exact score tie the
+    list position decides the scale factor — all forward ratios precede all
+    inverses, as in ffsubsync/ffsubsync.py:131-142.
+    """
+    if args.no_fix_framerate:
+        return []
+    grid: List[Optional[float]] = list(FRAMERATE_RATIOS) + [
+        1.0 / ratio for ratio in FRAMERATE_RATIOS
+    ]
+    if args.gss:
+        grid.append(None)
+    return grid
+
+
+def assess_alignment_quality(
+    best_score: float,
+    offset_seconds: float,
+    scale_factor: float,
+    *,
+    min_score: float,
+    max_offset_seconds: float,
+    max_framerate_deviation: float,
+) -> List[str]:
+    """Reasons an alignment looks too low-quality to trust (empty = trust it).
+
+    Rule table mirroring the reference gate (ffsubsync/ffsubsync.py:145-174):
+    an anti-correlated best score, an implausibly large shift, or a framerate
+    scale far from 1.0 each suggest a spurious match. Threshold values and the
+    human-readable reason strings are contract surface
+    (tests/test_quality_gate.py).
+    """
+    framerate_deviation = abs(scale_factor - 1.0)
+    rules = (
+        (
+            best_score < min_score,
+            "score %.1f < %.1f" % (best_score, min_score),
+        ),
+        (
+            abs(offset_seconds) > max_offset_seconds,
+            "|offset| %.1fs > %.1fs" % (abs(offset_seconds), max_offset_seconds),
+        ),
+        (
+            framerate_deviation > max_framerate_deviation,
+            "framerate deviation %.3f > %.3f"
+            % (framerate_deviation, max_framerate_deviation),
+        ),
+    )
+    return [reason for failed, reason in rules if failed]
+
+
+GSS_TOL = 1e-4  # same tolerance as the reference (golden_section_search.py:15)
+_GSS_GRID_K = 33  # ratios scored per refinement round (one device launch)
+
+
+def gss_grid(lo: float, hi: float) -> Tuple[float, List[float]]:
+    """One refinement round's ratio grid over bracket [lo, hi].
+
+    Shared by the single-file loop below and batch.sync_batch's per-job
+    refinement so the two entry points use provably identical bracket math.
+    """
+    step = (hi - lo) / (_GSS_GRID_K - 1)
+    return step, [lo + i * step for i in range(_GSS_GRID_K)]
+
+
+def gss_narrow(ratios: List[float], step: float, best_i: int) -> Tuple[float, float]:
+    """Bracket for the next round: one step either side of the argmax,
+    clamped to the reference's [0.9, 1.1] search range."""
+    return (
+        max(MIN_FRAMERATE_RATIO, ratios[best_i] - step),
+        min(MAX_FRAMERATE_RATIO, ratios[best_i] + step),
+    )
 
 
 def _run_gss_search(
@@ -246,7 +351,7 @@ def make_reference_extractor(
     video/audio. Only the video/audio source touches the device."""
     pgs_stream = getattr(args, "pgs_ref_stream", None)
     if pgs_stream is not None:
-        from ffsubsync_tpu.media.pgs import PGSSpeechSource
+        from ffsubsync_tpu_torch.media.pgs import PGSSpeechSource
 
         resolved_stream: Optional[str] = None if pgs_stream == "auto" else pgs_stream
         if resolved_stream is not None and not resolved_stream.startswith("0:"):
@@ -320,6 +425,73 @@ def make_reference_extractor(
     )
 
 
+def extract_subtitles_from_reference(args: argparse.Namespace) -> int:
+    """`--extract-subs-from-stream`: no sync, just dump a subtitle track."""
+    # normalize "N" / "s:N" / "0:s:N" to "0:s:N" (the reference mangles the
+    # bare "s:N" form into an invalid "0:s:s:N" — ffsubsync.py:403-409 — which
+    # ffmpeg then rejects; normalizing correctly is a deliberate fix)
+    stream = args.extract_subs_from_stream
+    if stream.startswith("s:"):
+        stream = "0:" + stream
+    elif not stream.startswith("0:s:"):
+        stream = "0:s:{}".format(stream)
+    if not stream.startswith("0:s:"):
+        logger.error(
+            "invalid stream for subtitle extraction: %s", args.extract_subs_from_stream
+        )
+    ffmpeg_args = [
+        ffmpeg_bin_path("ffmpeg", args.gui_mode, ffmpeg_resources_path=args.ffmpeg_path)
+    ]
+    ffmpeg_args.extend(
+        [
+            "-y",
+            "-nostdin",
+            "-loglevel",
+            "fatal",
+            "-i",
+            args.reference,
+            "-map",
+            "{}".format(stream),
+            "-f",
+            "srt",
+        ]
+    )
+    if args.srtout is None:
+        ffmpeg_args.append("-")
+    else:
+        ffmpeg_args.append(args.srtout)
+    logger.info(
+        "attempting to extract subtitles to %s ...",
+        "stdout" if args.srtout is None else args.srtout,
+    )
+    retcode = subprocess.call(ffmpeg_args)
+    if retcode == 0:
+        logger.info("...done")
+    else:
+        logger.error(
+            "ffmpeg unable to extract subtitles from reference; return code %d",
+            retcode,
+        )
+    return retcode
+
+
+def _setup_logging(
+    args: argparse.Namespace,
+) -> Tuple[Optional[str], Optional[logging.FileHandler]]:
+    log_handler = None
+    log_path = None
+    if args.make_test_case or args.log_dir_path is not None:
+        log_path = session_log_path(args.log_dir_path)
+        log_handler = logging.FileHandler(log_path)
+        logger.addHandler(log_handler)
+        logger.info("this log will be written to %s", os.path.abspath(log_path))
+    return log_path, log_handler
+
+
+def _npy_savename(args: argparse.Namespace) -> str:
+    return speech_archive_path(args.reference)
+
+
 def _run_impl(
     args: argparse.Namespace,
     result: Dict[str, Any],
@@ -348,6 +520,39 @@ def _run_impl(
             )
             return False
     return try_sync(args, ref_extractor, result)
+
+
+def validate_and_transform_args(
+    parser_or_args: Union[argparse.ArgumentParser, argparse.Namespace],
+) -> Optional[argparse.Namespace]:
+    if isinstance(parser_or_args, argparse.Namespace):
+        parser = None
+        args = parser_or_args
+    else:
+        parser = parser_or_args
+        args = parser.parse_args()
+    try:
+        validate_args(args)
+    except ValueError as e:
+        logger.error(e)
+        if parser is not None:
+            parser.print_usage()
+        return None
+    if args.gui_mode and args.srtout is None:
+        args.srtout = "{}.synced.srt".format(os.path.splitext(args.srtin[0])[0])
+    try:
+        validate_file_permissions(args)
+    except ValueError as e:
+        logger.error(e)
+        return None
+    ref_format = _ref_format(args.reference)
+    if args.merge_with_reference and ref_format not in SUBTITLE_EXTENSIONS:
+        logger.error(
+            "merging synced output with reference only valid "
+            "when reference composed of subtitles"
+        )
+        return None
+    return args
 
 
 def run(

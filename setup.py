@@ -27,8 +27,9 @@ setup(
         # analysis rate); without these --vad silero/fused degrades to a
         # random-init net with only a log warning
         "ffsubsync_tpu": ["models/weights/*.npz"],
-        # the PyTorch port's CUDA kernels are built from source at first use
-        "ffsubsync_tpu_torch": ["csrc/*.cu"],
+        # the PyTorch port's CUDA kernels and host library are built from
+        # source at first use; it ships its own copy of the weights
+        "ffsubsync_tpu_torch": ["csrc/*.cu", "csrc/*.cpp", "models/weights/*.npz"],
     },
     # 3.10 floor: jax releases with the top-level jax.shard_map API used by
     # ffsubsync_tpu/parallel require >=3.10 (jax dropped 3.9 earlier)

@@ -3,14 +3,19 @@
 ``align_candidates``) against the JAX package's device kernel
 (``_align_specs_kernel``), its host path and the independent oracle of
 tests/test_alignment.py: the ``(-max, max]`` window, first maximum over
-descending offsets, the exact rescore and ``max_offset=0``."""
+descending offsets, the exact rescore and ``max_offset=0``. Candidates
+are the port's own :class:`RasterSpec`s; the JAX side gets copies made
+with its class."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from ffsubsync_tpu.ops import align as jalign
-from ffsubsync_tpu.subs.raster import RasterSpec
+from ffsubsync_tpu.subs import raster as jraster
 from ffsubsync_tpu_torch.ops import align as talign
+from ffsubsync_tpu_torch.subs.raster import RasterSpec
 from ffsubsync_tpu_torch.ops.vad import LazySpeechSignal
 
 from tests.test_alignment import oracle_align
@@ -41,6 +46,13 @@ def _spec(signal, n_samples=None, weight=1.0):
     )
 
 
+def _jax(x):
+    """A port spec as the JAX package's class; arrays pass through."""
+    if isinstance(x, RasterSpec):
+        return jraster.RasterSpec(**dataclasses.asdict(x))
+    return x
+
+
 def _shifted(ref, true_offset, n_sub):
     sub = np.zeros(n_sub)
     for t in range(n_sub):
@@ -51,8 +63,9 @@ def _shifted(ref, true_offset, n_sub):
 
 def _both(ref, candidates, max_offset):
     port = talign.align_candidates(ref, candidates, max_offset, device=CPU)
-    want = jalign.align_candidates(ref, candidates, max_offset, prefer_host=False)
-    host = jalign.align_candidates(ref, candidates, max_offset, prefer_host=True)
+    jax_cands = [_jax(c) for c in candidates]
+    want = jalign.align_candidates(_jax(ref), jax_cands, max_offset, prefer_host=False)
+    host = jalign.align_candidates(_jax(ref), jax_cands, max_offset, prefer_host=True)
     for p, w, h in zip(port, want, host):
         assert p.offset == w.offset == h.offset
         assert p.score == pytest.approx(w.score, rel=SCORE_REL)
@@ -100,7 +113,7 @@ def test_batched_candidates_all_reference_kinds(ref_kind):
             [(torch.from_numpy(ref[:700]).float(), 700), (torch.from_numpy(ref[700:]).float(), 1300)]
         )
     port = talign.align_candidates(ref_arg, candidates, 100, device=CPU)
-    want = jalign.align_candidates(ref, candidates, 100, prefer_host=False)
+    want = jalign.align_candidates(ref, [_jax(c) for c in candidates], 100, prefer_host=False)
     assert [p.offset for p in port] == [w.offset for w in want] == [-30, 0, 17]
     for p, w in zip(port, want):
         assert p.score == pytest.approx(w.score, rel=SCORE_REL)
@@ -135,7 +148,8 @@ def test_torch_argmax_takes_the_first_maximum():
 
 def test_host_path_and_errors(monkeypatch):
     spec = _spec(np.r_[np.zeros(5), np.ones(15), np.zeros(44)])
-    # prefer_host routes to the JAX package's host path: no device needed
+    # prefer_host routes to the host path (a copy of the JAX package's): no
+    # device needed
     assert talign.align_candidates(spec, [spec], prefer_host=True)[0].offset == 0
     monkeypatch.setenv("FFS_TPU_HOST_ALIGN", "1")
     assert talign.align_candidates(spec, [spec])[0].offset == 0

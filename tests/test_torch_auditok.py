@@ -12,7 +12,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from ffsubsync_tpu import native
+from ffsubsync_tpu_torch import native
 from ffsubsync_tpu.cli import make_parser
 from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
 from ffsubsync_tpu.ops import vad as jvad

@@ -13,14 +13,14 @@ import torch
 
 from ffsubsync_tpu.batch import sync_batch as jax_sync_batch
 from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
-from ffsubsync_tpu.ops.align import next_pow2
-from ffsubsync_tpu.subs.raster import rasterize_intervals
 from ffsubsync_tpu_torch import batch as batch_mod
 from ffsubsync_tpu_torch.batch import sync_batch
 from ffsubsync_tpu_torch.ops import align as talign
+from ffsubsync_tpu_torch.ops.align import next_pow2
 from ffsubsync_tpu_torch.ops.align_device import align_specs, prepare_ref_pm
 from ffsubsync_tpu_torch.ops.vad import LazySpeechSignal
 from ffsubsync_tpu_torch.parallel.batch import BatchAligner
+from ffsubsync_tpu_torch.subs.raster import rasterize_intervals
 
 from tests.helpers import write_wav
 from tests.test_batch import SPANS, _make_job, _srt, _ts
@@ -283,7 +283,7 @@ def test_sync_batch_output_encoding_same_preserves_input(tmp_path):
 
 
 def test_sync_batch_pgs_reference(tmp_path, monkeypatch):
-    import ffsubsync_tpu.media.pgs as pgs
+    import ffsubsync_tpu_torch.media.pgs as pgs
 
     packets = [{"pts_time": str(a), "duration_time": str(b - a), "size": "4000"}
                for a, b in SPANS]

@@ -2,11 +2,13 @@
 """The kernel build under concurrent first use: the multi-segment and batch
 paths reach ``_build.build_library`` from several threads at once, and one
 compiler run must serve them all (a fake ``nvcc`` stands in for the real
-one, which this machine does not have)."""
+one, which this machine does not have). The host library's build, with the
+real ``g++``, likewise."""
 import os
 import stat
 import threading
 
+import numpy as np
 import torch
 
 from ffsubsync_tpu_torch.ops import _build
@@ -69,3 +71,39 @@ def test_existing_build_is_reused(tmp_path, monkeypatch):
     again = _build.build_library()
     assert first.path == again.path and again.seconds == 0.0
     assert len(log.read_text().splitlines()) == 1
+
+
+def test_host_library_concurrent_first_use_builds_once(tmp_path, monkeypatch):
+    """The port's host library (csrc/ffs_native.cpp, g++) is built at first
+    use, once, into its build directory, whichever threads ask at once."""
+    from ffsubsync_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", native._UNSET)
+    real_build, runs = native._build, []
+
+    def counted(path):
+        runs.append(path)
+        return real_build(path)
+
+    monkeypatch.setattr(native, "_build", counted)
+    barrier = threading.Barrier(8)
+    libs = []
+
+    def first_use():
+        barrier.wait(timeout=30)
+        libs.append(native._get_lib())
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert len(runs) == 1 and len(libs) == 8
+    assert libs[0] is not None and all(lib is libs[0] for lib in libs)
+    assert os.listdir(str(tmp_path / "build")) == [os.path.basename(native.library_path())]
+    assert not [f for f in os.listdir(os.path.dirname(native.__file__)) if f.endswith(".so")]
+    pcm = (np.arange(-5000, 5000) * 7).astype(np.int16)
+    built = native.decimate2(pcm)
+    monkeypatch.setattr(native, "_lib", None)  # the numpy fallback agrees
+    np.testing.assert_array_equal(built, native.decimate2(pcm))

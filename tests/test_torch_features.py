@@ -4,13 +4,15 @@ host staging, wire decodes, and the plain PyTorch frontend against the
 jnp composition and the Pallas kernel (interpret mode). The CUDA kernel
 itself is compared with the plain version on the card (chip_smoke.py and
 the ``cuda``-marked test below)."""
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from ffsubsync_tpu import native
+from ffsubsync_tpu_torch import native
 from ffsubsync_tpu.models import neural_vad as jnv
 from ffsubsync_tpu.ops import features as jfeat
 from ffsubsync_tpu.ops.pallas import frontend as plf
@@ -54,7 +56,12 @@ def test_numpy_helpers_equal_reference(rate):
         tfe.mulaw_encode_host(pcm), plf.mulaw_encode_host(pcm)
     )
     assert tnv.has_trained_weights(rate) == jnv.has_trained_weights(rate)
-    assert tnv.default_weights_path(rate) == jnv.default_weights_path(rate)
+    # the port ships its own copy of the weights: same file, same bytes
+    ours, theirs = tnv.default_weights_path(rate), jnv.default_weights_path(rate)
+    assert ours == os.path.join(os.path.dirname(tnv.__file__), "weights",
+                                os.path.basename(theirs))
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_constants_and_shapes_equal_reference(monkeypatch):

@@ -1,7 +1,10 @@
 # -*- coding: utf-8 -*-
-"""ffsubsync_tpu_torch never imports jax, and never falls back silently from
-the device it was asked for."""
+"""ffsubsync_tpu_torch stands alone: it imports neither jax nor the JAX
+package ``ffsubsync_tpu`` (not even a module of it that does without jax),
+and it never falls back silently from the device it was asked for."""
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -13,9 +16,11 @@ PKG = os.path.join(REPO, "ffsubsync_tpu_torch")
 
 torch.set_num_threads(1)
 
-_NO_JAX_SYNC = r"""
-import os, sys, tempfile
-sys.modules["jax"] = None  # any import of jax now raises ImportError
+# any import of jax or of the JAX package now raises ImportError
+_BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["ffsubsync_tpu"] = None\n'
+
+_NO_JAX_SYNC = _BLOCK + r"""
+import os, tempfile
 import ffsubsync_tpu_torch
 import ffsubsync_tpu_torch.media.segments
 import ffsubsync_tpu_torch.parallel.batch
@@ -23,8 +28,8 @@ import ffsubsync_tpu_torch.parallel.vad_shard as vad_shard
 import numpy as np
 from ffsubsync_tpu_torch import make_parser, run
 from ffsubsync_tpu_torch.batch import sync_batch
-from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
-from ffsubsync_tpu.utils.fixtures import write_wav_i16
+from ffsubsync_tpu_torch.models.synth_data import speech_signal_for_spans
+from ffsubsync_tpu_torch.utils.fixtures import write_wav_i16
 
 
 def stamp(t):
@@ -56,19 +61,17 @@ for result in results:
     assert result["sync_was_successful"], result
     assert abs(result["offset_seconds"] - 1.25) < 0.15, result
 result = results[0]
-loaded = [m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] == "jax"]
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and m.split(".")[0] in ("jax", "ffsubsync_tpu")]
 assert not loaded, loaded
-jax_package = ("ffsubsync_tpu.batch", "ffsubsync_tpu.media.segments", "ffsubsync_tpu.media.audio",
-               "ffsubsync_tpu.parallel", "ffsubsync_tpu.ops.vad", "ffsubsync_tpu.ops.features")
-assert not [m for m in jax_package if m in sys.modules], sys.modules.keys()
 print("NO_JAX_SYNC_OK", result["offset_seconds"])
 """
 
 
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
     """The fused, auditok, multi-segment and batch syncs of a WAV and the
-    sharded VAD, with jax made unimportable; none of the JAX package's
-    device modules loads."""
+    sharded VAD, with jax and the JAX package made unimportable and the
+    fixtures taken from the port; no module of either loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run(
@@ -80,15 +83,15 @@ def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
 
 
 def test_module_cli_entry_runs_with_jax_blocked(tmp_path):
-    """``python -m ffsubsync_tpu_torch`` (an srt reference: host only)."""
+    """``python -m ffsubsync_tpu_torch`` (an srt reference: host only), with
+    jax and the JAX package made unimportable."""
     srt = "1\n00:00:05,000 --> 00:00:07,500\nHello.\n\n2\n00:00:12,250 --> 00:00:15,000\nThere.\n\n"
     late = srt.replace("00:00:05,000", "00:00:06,000").replace("00:00:07,500", "00:00:08,500")
     late = late.replace("00:00:12,250", "00:00:13,250").replace("00:00:15,000", "00:00:16,000")
     (tmp_path / "ref.srt").write_text(srt)
     (tmp_path / "in.srt").write_text(late)
-    script = (
-        "import runpy, sys\n"
-        "sys.modules['jax'] = None\n"
+    script = _BLOCK + (
+        "import runpy\n"
         "sys.argv = ['ffs-torch', 'ref.srt', '-i', 'in.srt', '-o', 'out.srt']\n"
         "runpy.run_module('ffsubsync_tpu_torch', run_name='__main__')\n"
     )
@@ -101,28 +104,73 @@ def test_module_cli_entry_runs_with_jax_blocked(tmp_path):
     assert "00:00:05,000 --> 00:00:07,500" in (tmp_path / "out.srt").read_text()
 
 
-def test_no_source_file_imports_jax():
+def _sources():
+    """Every ``.py`` of the port, ``chip_smoke.py`` and ``frontend_ab.py``."""
+    paths = [os.path.join(REPO, name) for name in ("chip_smoke.py", "frontend_ab.py")]
     for root, _dirs, files in os.walk(PKG):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    for line in f:
-                        words = line.split()
-                        assert words[:2] not in (["import", "jax"], ["from", "jax"]), (
-                            name, line
-                        )
-                        assert not line.lstrip().startswith(("import jax.", "from jax.")), (
-                            name, line
-                        )
+        paths += [os.path.join(root, f) for f in sorted(files) if f.endswith(".py")]
+    return paths
+
+
+def _names(root, path):
+    """Modules under ``root`` that ``path`` imports, or names in a string
+    that ``importlib`` could be handed (a dotted module path)."""
+    under = re.compile(r"%s(\.\w+)*" % re.escape(root))
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if under.fullmatch(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if under.fullmatch(node.module or ""):
+                found.append(node.module)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if under.fullmatch(node.value):
+                found.append(node.value)
+    return found
+
+
+@pytest.mark.parametrize("root", ["jax", "ffsubsync_tpu"])
+def test_no_source_file_imports(root):
+    """An AST scan: no ``import``/``from`` of ``root`` or a module under it,
+    and no string naming one, in the port or in its two scripts."""
+    offenders = {}
+    for path in _sources():
+        names = _names(root, path)
+        if names:
+            offenders[os.path.relpath(path, REPO)] = names
+    assert not offenders
+
+
+def test_scan_finds_every_import_form(tmp_path):
+    """The scan itself: each form it must catch, and names it must not."""
+    path = tmp_path / "probe.py"
+    path.write_text(
+        "import ffsubsync_tpu\n"
+        "import ffsubsync_tpu.cli as c\n"
+        "from ffsubsync_tpu.subs import raster\n"
+        "from ffsubsync_tpu import native\n"
+        "import importlib\n"
+        "importlib.import_module('ffsubsync_tpu.sync')\n"
+        "import ffsubsync_tpu_torch\n"
+        "from ffsubsync_tpu_torch import native\n"
+        "x = 'ffsubsync_tpu/ops/align.py'\n"
+    )
+    assert _names("ffsubsync_tpu", str(path)) == [
+        "ffsubsync_tpu", "ffsubsync_tpu.cli", "ffsubsync_tpu.subs", "ffsubsync_tpu",
+        "ffsubsync_tpu.sync",
+    ]
+    assert _names("jax", str(path)) == []
 
 
 def test_cuda_requested_without_a_card_raises(monkeypatch, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
-    from ffsubsync_tpu.cli import make_parser
-    from ffsubsync_tpu.utils.fixtures import write_wav_i16
+    from ffsubsync_tpu_torch.cli import make_parser
     from ffsubsync_tpu_torch.device import get_device
     from ffsubsync_tpu_torch.sync import run
+    from ffsubsync_tpu_torch.utils.fixtures import write_wav_i16
 
     monkeypatch.setenv("FFS_TORCH_DEVICE", "cuda")
     with pytest.raises(RuntimeError, match="FFS_TORCH_DEVICE=cuda"):

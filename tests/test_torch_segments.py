@@ -12,10 +12,10 @@ from ffsubsync_tpu.cli import make_parser
 from ffsubsync_tpu.constants import FRAMERATE_RATIOS
 from ffsubsync_tpu.media.segments import MultiSegmentVideoSpeechSource as JaxSource
 from ffsubsync_tpu.models.synth_data import speech_signal_for_spans
-from ffsubsync_tpu.subs.raster import RasterSpec
 from ffsubsync_tpu.sync import run as jax_run
 from ffsubsync_tpu_torch.media.segments import MultiSegmentVideoSpeechSource
 from ffsubsync_tpu_torch.ops.align import align_candidates
+from ffsubsync_tpu_torch.subs.raster import RasterSpec
 from ffsubsync_tpu_torch.sync import run as torch_run
 
 from tests.helpers import write_wav

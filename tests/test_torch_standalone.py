@@ -1,0 +1,184 @@
+# -*- coding: utf-8 -*-
+"""The port's own copies of the JAX package's host code stay equal to their
+originals: module sources (the package name substituted), the functions
+merged into port modules, the host library's C++ source, the weight files,
+what the two host libraries compute, ``__version__`` and the CLI parser."""
+import hashlib
+import importlib
+import inspect
+import os
+import re
+
+import numpy as np
+import pytest
+
+import ffsubsync_tpu
+import ffsubsync_tpu_torch
+from ffsubsync_tpu import native as jnative
+from ffsubsync_tpu.cli import make_parser as jax_make_parser
+from ffsubsync_tpu_torch import native as tnative
+from ffsubsync_tpu_torch.cli import make_parser as torch_make_parser
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_DIR = os.path.join(REPO, "ffsubsync_tpu")
+PKG_DIR = os.path.join(REPO, "ffsubsync_tpu_torch")
+
+# modules copied whole, under the same path in both packages
+VERBATIM = [
+    "constants.py", "version.py", "validation.py", "cli.py", "speech.py",
+    "utils/__init__.py", "utils/encodings.py", "utils/file_io.py",
+    "utils/progress.py", "utils/archive.py", "utils/fixtures.py",
+    "subs/__init__.py", "subs/model.py", "subs/metadata.py", "subs/srt_format.py",
+    "subs/ssa_format.py", "subs/formats.py", "subs/parser.py", "subs/transforms.py",
+    "subs/raster.py",
+    "media/ffmpeg.py", "media/wav.py", "media/embedded.py", "media/pgs.py",
+]
+# functions and classes copied into a port module that does more
+MERGED = [
+    ("ops.align", name) for name in (
+        "FailedToFindAlignmentException", "next_pow2", "Alignment", "_offset_window",
+        "_resolve_host_align", "_host_pm", "_align_candidates_host", "_ref_length",
+    )
+] + [
+    ("sync", name) for name in (
+        "get_srt_source_maker", "get_framerate_ratios_to_try", "assess_alignment_quality",
+        "gss_grid", "gss_narrow", "extract_subtitles_from_reference", "_setup_logging",
+        "_npy_savename", "validate_and_transform_args",
+    )
+] + [
+    ("models.synth_data", name)
+    for name in ("speech_signal_for_spans", "_moving_formant_speech")
+]
+MERGED_VALUES = [
+    ("ops.align", "RefLike"), ("sync", "MIN_FRAMERATE_RATIO"), ("sync", "MAX_FRAMERATE_RATIO"),
+    ("sync", "GSS_TOL"), ("sync", "_GSS_GRID_K"),
+]
+WEIGHTS = sorted(os.listdir(os.path.join(JAX_DIR, "models", "weights")))
+CLI_LINES = [
+    ["ref.mkv", "-i", "in.srt", "-o", "out.srt"],
+    ["ref.wav", "-i", "in.srt", "--vad", "fused", "--gss", "--max-offset-seconds", "30"],
+    ["ref.wav", "-i", "a.srt", "b.srt", "--multi-segment-sync", "--segment-count", "4"],
+    ["ref.srt", "-i", "in.ass", "--no-fix-framerate", "--encoding", "cp1252",
+     "--output-encoding", "same", "--merge-with-reference"],
+    ["ref.mkv", "--extract-subs-from-stream", "s:1", "-o", "x.srt"],
+    ["ref.wav", "-i", "in.srt", "--vad", "auditok", "--frame-rate", "16000",
+     "--skip-sync-on-low-quality", "--min-score", "1.5"],
+]
+
+
+def _port_text(text: str) -> str:
+    return re.sub(r"\bffsubsync_tpu\b", "ffsubsync_tpu_torch", text)
+
+
+def _read(path: str) -> str:
+    with open(path, encoding="utf-8") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("module", VERBATIM)
+def test_module_is_a_verbatim_copy(module):
+    want = _port_text(_read(os.path.join(JAX_DIR, module)))
+    assert _read(os.path.join(PKG_DIR, module)) == want
+
+
+@pytest.mark.parametrize("module,name", MERGED, ids=["%s.%s" % m for m in MERGED])
+def test_merged_source_is_a_verbatim_copy(module, name):
+    ours = getattr(importlib.import_module("ffsubsync_tpu_torch." + module), name)
+    theirs = getattr(importlib.import_module("ffsubsync_tpu." + module), name)
+    assert inspect.getsource(ours) == _port_text(inspect.getsource(theirs))
+
+
+@pytest.mark.parametrize("module,name", MERGED_VALUES, ids=["%s.%s" % m for m in MERGED_VALUES])
+def test_merged_value_equals_original(module, name):
+    ours = getattr(importlib.import_module("ffsubsync_tpu_torch." + module), name)
+    theirs = getattr(importlib.import_module("ffsubsync_tpu." + module), name)
+    assert repr(ours) == _port_text(repr(theirs))
+
+
+def test_native_source_is_a_byte_copy():
+    with open(os.path.join(REPO, "native", "ffs_native.cpp"), "rb") as f:
+        want = f.read()
+    with open(tnative.SOURCE, "rb") as f:
+        assert f.read() == want
+
+
+@pytest.mark.parametrize("name", WEIGHTS)
+def test_weight_file_is_byte_equal(name):
+    digests = []
+    for pkg in (JAX_DIR, PKG_DIR):
+        with open(os.path.join(pkg, "models", "weights", name), "rb") as f:
+            digests.append(hashlib.sha256(f.read()).hexdigest())
+    assert digests[0] == digests[1]
+
+
+def test_native_builds_into_the_port_build_dir():
+    assert tnative.AVAILABLE, "g++ could not build csrc/ffs_native.cpp"
+    assert os.path.dirname(tnative.library_path()) == os.path.join(
+        REPO, "build", "ffsubsync_tpu_torch"
+    )
+    assert os.path.exists(tnative.library_path())
+
+
+def _pcm(n, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n) * 6000).clip(-32768, 32767).astype(np.int16)
+
+
+NATIVE_CALLS = {
+    # (function name, arguments); each runs on both libraries
+    "stage_for_device": ("stage_for_device", (_pcm(48000 + 333, 1), 2, 120, 128, 110)),
+    "stage_for_device_p6": ("stage_for_device_p6", (_pcm(24000 + 77, 2), 1, 120, 105)),
+    "frame_for_device_mulaw": ("frame_for_device", (_pcm(9000 + 5, 3), 160, 160, 60, True)),
+    "frame_for_device_i16": ("frame_for_device", (_pcm(9000 + 5, 4), 80, 128, 120, False)),
+    "window_energy_db": ("window_energy_db", (_pcm(12000 + 61, 5), 120)),
+    "tokenize": ("tokenize", (np.random.RandomState(6).rand(5000) > 0.4, 5, 60, 3)),
+    "decimate2": ("decimate2", (_pcm(10001, 7),)),
+}
+
+
+@pytest.mark.parametrize("call", sorted(NATIVE_CALLS))
+def test_native_libraries_agree(call):
+    """The port's library, the reference's and the port's numpy fallback
+    give identical results on seeded random PCM."""
+    name, args = NATIVE_CALLS[call]
+    ours = getattr(tnative, name)(*args)
+    theirs = getattr(jnative, name)(*args)
+    assert jnative.AVAILABLE and tnative.AVAILABLE
+    if name == "tokenize":
+        assert ours == theirs and ours
+    else:
+        assert ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("call", sorted(set(NATIVE_CALLS) - {"window_energy_db"}))
+def test_native_fallback_agrees(call, monkeypatch):
+    """The numpy fallbacks (no library) give the library's results; the
+    energy fallback divides a short tail by the full window, as in the
+    reference, and is left out."""
+    name, args = NATIVE_CALLS[call]
+    want = getattr(tnative, name)(*args)
+    monkeypatch.setattr(tnative, "_lib", None)
+    assert not tnative.AVAILABLE
+    got = getattr(tnative, name)(*args)
+    if name == "tokenize":
+        assert got == want
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_version_equals_reference():
+    assert ffsubsync_tpu_torch.__version__ == ffsubsync_tpu.__version__
+
+
+@pytest.mark.parametrize("argv", CLI_LINES, ids=[" ".join(a[2:5]) for a in CLI_LINES])
+def test_parser_gives_equal_namespaces(argv):
+    assert vars(torch_make_parser().parse_args(argv)) == vars(jax_make_parser().parse_args(argv))
+
+
+def test_parser_has_every_flag_and_help():
+    def flags(parser):
+        return [(a.option_strings, a.dest, a.default, a.help, a.choices, a.nargs)
+                for a in parser._actions]
+
+    assert flags(torch_make_parser()) == flags(jax_make_parser())

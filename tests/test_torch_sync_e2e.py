@@ -57,7 +57,7 @@ def test_wav_sync_matches_reference(tmp_path, vad, offset):
 def test_audio_signal_reaches_aligner_as_lazy_labels(tmp_path, monkeypatch):
     """The pipeline hands the aligner the port's lazy device signal, and it
     aligns exactly as its materialized host values do."""
-    from ffsubsync_tpu.subs.raster import rasterize_intervals
+    from ffsubsync_tpu_torch.subs.raster import rasterize_intervals
     from ffsubsync_tpu_torch.media.audio import VideoSpeechSource
     from ffsubsync_tpu_torch.ops.align import align_candidates
     from ffsubsync_tpu_torch.ops.vad import LazySpeechSignal

@@ -104,7 +104,7 @@ def test_short_signal_pads_shards_with_wire_silence(monkeypatch, mode):
 
 
 def test_sharded_labels_drive_the_aligner_to_the_shift():
-    from ffsubsync_tpu.subs.raster import rasterize_intervals
+    from ffsubsync_tpu_torch.subs.raster import rasterize_intervals
     from ffsubsync_tpu_torch.ops.align import align_candidates
 
     spans = [(2.0, 5.0), (9.0, 13.0), (20.0, 24.0), (33.0, 37.0)]
