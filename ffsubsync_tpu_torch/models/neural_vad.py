@@ -64,6 +64,27 @@ def expected_param_shapes() -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def init_params(generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A fresh net in the JAX layout, drawn as ``ffsubsync_tpu``'s
+    ``init_params`` draws it: each weight a standard normal over the square
+    root of its fan-in (43 for ``w_in``, 96 for ``w_out``, 5·96 for a conv)
+    and every bias zero. The numbers come from ``generator``, not from
+    JAX's PRNG, so only the distributions match."""
+    n_in = N_MELS + N_AUX
+    params: Dict[str, torch.Tensor] = {
+        "w_in": torch.randn((n_in, HIDDEN), generator=generator) / np.sqrt(n_in),
+        "b_in": torch.zeros((HIDDEN,)),
+        "w_out": torch.randn((HIDDEN, 1), generator=generator) / np.sqrt(HIDDEN),
+        "b_out": torch.zeros((1,)),
+    }
+    for i in range(len(DILATIONS)):
+        params["w_conv%d" % i] = torch.randn(
+            (KERNEL, HIDDEN, HIDDEN), generator=generator
+        ) / np.sqrt(KERNEL * HIDDEN)
+        params["b_conv%d" % i] = torch.zeros((HIDDEN,))
+    return params
+
+
 def default_weights_path(rate: Optional[int] = None) -> str:
     """Weights file for an *analysis* rate; the rate-less legacy name is the
     48 kHz fallback."""
@@ -181,9 +202,9 @@ def params_from_numpy(d) -> Dict[str, torch.Tensor]:
 def load_net(rate: int, device: torch.device) -> NeuralVADNet:
     """The net with the shipped weights for an analysis rate, on ``device``.
 
-    Missing or stale weights degrade to a deterministic random init with a
-    loud warning, as in the reference (whose init differs: the two
-    frameworks' generators give different numbers).
+    Missing or stale weights degrade to :func:`init_params` of a generator
+    seeded 0, with a loud warning, as in the reference (the distributions
+    are the reference's; the numbers drawn differ).
     """
     path = default_weights_path(rate)
     net = NeuralVADNet()
@@ -202,17 +223,13 @@ def load_net(rate: int, device: torch.device) -> NeuralVADNet:
                     "neural VAD weights at %s predate the current "
                     "architecture (missing/mis-shaped: %s)", path, mismatched,
                 )
-    if loaded is not None:
-        net.load_state_dict(params_from_numpy(loaded))
-    else:
+    if loaded is None:
         logger.warning(
             "no usable neural VAD weights at %s; using deterministic random "
             "initialization (detection quality will be poor)", path,
         )
-        gen = torch.Generator().manual_seed(0)
-        with torch.no_grad():
-            for p in net.parameters():
-                p.copy_(torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[-1]))
+        loaded = init_params(torch.Generator().manual_seed(0))
+    net.load_state_dict(params_from_numpy(loaded))
     return net.to(device).eval()
 
 
