@@ -54,7 +54,23 @@ needs no network and no jax. Phases, each fatal on failure:
    staged shards to the labels); the kernel against its plain version at
    one shard's launch shape; card against CPU sharded labels on 10
    minutes; and a CLI sync with ``FFS_TPU_SP_VAD=1``, which on one card
-   keeps the chunked path (the gate needs two or more cards).
+   keeps the chunked path (the gate needs two or more cards);
+10. training (``scripts/train_neural_vad``) at the shipped net's full
+    width: the kernel against its plain version at the trainer's two launch
+    shapes (8 clips of 10 s as int16 ``[8000, 120]`` and ``[8000, 480]``);
+    three steps of the script's optimizer on the card against the same on
+    the CPU; the trainer's entry in-process (``--frame-rate 12000 --steps
+    30``, one kernel launch per step and one for the held-out pass), its
+    weights written in the JAX layout and driving the card's silero program
+    over 10 minutes of the WAV; and ``make_vad_train_step`` over
+    ``[cuda:0, cuda:0]`` (and every card, where there are two or more)
+    against ``[cuda:0]``;
+11. evaluation: ``scripts/eval_neural_vad.evaluate`` on every adversarial
+    condition (one 30-s clip at 48 kHz each) for the silero, fused, webrtc
+    and auditok backends on the card against the CPU, and
+    ``scripts/eval_vad_agreement.run_synthetic`` (fused, silero, webrtc) on
+    the ``clean`` and ``music_bed`` movies of 3 minutes at 12 kHz, held to
+    ``check_bars``.
 
 Every path is driven with the kernel's launch count set to 0 just before
 and read just after. The last three lines of standard output are one JSON
@@ -101,6 +117,24 @@ SP_MODES = ("weighted", "webrtc", "silero")
 # CPU, the 4-shard program 6), so at most SP_FLIPS of windows may differ by
 # a whole vote
 SP_TOL, SP_AGREEMENT, SP_MAX_DIFF, SP_FLIPS = 0.02, 0.999, 0.05, 1e-4
+# phase 10: the trainer's batch (its defaults) at the rates of its two
+# launch shapes, and the in-process run
+TRAIN_RATES, TRAIN_CLIPS, TRAIN_CLIP_S, TRAIN_STEPS = (12000, 48000), 8, 10.0, 30
+# card against CPU, three steps of the script's optimizer at 12 kHz
+# (learning rates 0, 1e-3, 2e-3): the per-step loss relative, and the
+# parameters within TRAIN_PARAM_TOL on TRAIN_PARAM_SHARE of the entries and
+# within twice the summed learning rates on all. The kernel's features
+# differ from the plain ones by up to TOLS, and Adam's normalized step lets
+# an entry whose gradient is near zero step either way. Measured on one
+# H100: losses 1.46e-3 apart, 0.99604 of the parameters within 1e-4, the
+# largest difference 3.6e-3 of the 6e-3 allowed
+TRAIN_LOSS_REL, TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 5e-3, 1e-4, 0.99
+# mesh against one device (tests/test_torch_train.py's bounds)
+MESH_LOSS_REL, MESH_PARAM_TOL, MESH_PARAM_SHARE = 1e-4, 1e-5, 0.99
+# phase 11: one clip per adversarial condition, and the agreement movies
+EVAL_SECONDS, EVAL_RATE, EVAL_ACC_TOL = 30.0, 48000, 0.01
+EVAL_BACKENDS = ("silero", "fused", "webrtc", "auditok")
+AGREE_VADS, AGREE_SCENARIOS, AGREE_MINUTES = ("fused", "silero", "webrtc"), ("clean", "music_bed"), 3.0
 
 
 def log(*parts):
@@ -921,6 +955,203 @@ def labels_card_vs_cpu(pcm):
     return agree
 
 
+def _params_close(got, want, lr_sum, tol, share, what):
+    """Parameters (JAX layout) within ``tol`` on ``share`` of the entries
+    and within twice ``lr_sum`` on all; fails outside. Returns (share
+    within ``tol``, largest difference)."""
+    import numpy as np
+
+    diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+    within, worst = float(np.mean(diffs <= tol)), float(diffs.max())
+    log("  %s: %.6f of %d parameters within %g, max |d| %.3g (2 x summed lr %.3g)"
+        % (what, within, len(diffs), tol, worst, 2 * lr_sum))
+    if within < share or worst > 2 * lr_sum or not np.isfinite(diffs).all():
+        fail("%s: parameters outside the bounds" % what)
+    return within, worst
+
+
+def _losses_close(got, want, rel, what):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    worst = float(np.max(np.abs(got - want) / np.abs(want)))
+    log("  %s: losses %s against %s, worst relative difference %.3g"
+        % (what, got.tolist(), want.tolist(), worst))
+    if not np.isfinite(got).all() or worst > rel:
+        fail("%s: losses differ by %.3g relative (bound %g)" % (what, worst, rel))
+    return worst
+
+
+def train_phase(dev, pcm):
+    """Phase 10. Returns a dict of what it measured."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu_torch.models import neural_vad as nv
+    from ffsubsync_tpu_torch.models.synth_data import synth_batch
+    from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.ops import vad
+    from ffsubsync_tpu_torch.ops.features import prepare_staged_input
+    from ffsubsync_tpu_torch.parallel.batch import adam, make_vad_train_step
+    from ffsubsync_tpu_torch.scripts import train_neural_vad as tr
+
+    out = {"errs": {}, "ms": {}, "plain_ms": {}}
+    # (a) the kernel against its plain version at both launch shapes
+    for rate in TRAIN_RATES:
+        window = rate // SAMPLE_RATE
+        pcm16, _labels = synth_batch(np.random.RandomState(0), TRAIN_CLIPS, TRAIN_CLIP_S,
+                                     rate, SAMPLE_RATE)
+        x = torch.from_numpy(pcm16.reshape(-1, window)).to(dev)
+        got = fe.fused_frontend(x, window, rate)
+        torch.cuda.synchronize()
+        label = _shape(x)
+        out["errs"][label] = compare(got, fe.frontend_plain(x, window, rate),
+                                     "training batch %s at %d Hz" % (label, rate))
+        out["ms"][label] = median_ms(lambda: fe.fused_frontend(x, window, rate),
+                                     calls=KERNEL_CALLS)
+        out["plain_ms"][label] = median_ms(lambda: fe.frontend_plain(x, window, rate),
+                                           calls=KERNEL_CALLS)
+        log("  kernel at the trainer's launch shape %s: %.4f ms, plain %.4f ms"
+            % (label, out["ms"][label], out["plain_ms"][label]))
+
+    # (b) three steps of the script's optimizer, card against CPU
+    args = tr.make_parser().parse_args(["--frame-rate", "12000", "--steps", str(TRAIN_STEPS)])
+    window = args.frame_rate // SAMPLE_RATE
+    rng = np.random.RandomState(1)
+    batches = [synth_batch(rng, args.batch, args.clip_seconds, args.frame_rate, SAMPLE_RATE,
+                           return_weights=True) for _ in range(3)]
+    init = nv.init_params(torch.Generator().manual_seed(0))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        net = nv.NeuralVADNet()
+        net.load_state_dict(nv.params_from_numpy(init))
+        net = net.to(where).train()
+        optimizer = adam(net, 0.0)
+        losses = [float(tr.train_step(net, optimizer, tr.schedule(args, i), *batch, window,
+                                      SAMPLE_RATE)) for i, batch in enumerate(batches)]
+        runs[where] = (losses, nv.params_to_numpy(net))
+    lr_sum = sum(tr.schedule(args, i) for i in range(3))
+    out["card_vs_cpu_loss_rel"] = _losses_close(runs["cuda"][0], runs["cpu"][0], TRAIN_LOSS_REL,
+                                                "3 training steps, card vs CPU")
+    out["card_vs_cpu_params"] = _params_close(runs["cuda"][1], runs["cpu"][1], lr_sum,
+                                              TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE,
+                                              "3 training steps, card vs CPU")
+
+    # (c) the trainer's entry, in-process, its launches counted from 0
+    with tempfile.TemporaryDirectory(prefix="ffs_train_") as tmp:
+        args = tr.make_parser().parse_args(["--frame-rate", "12000", "--steps", str(TRAIN_STEPS),
+                                            "--out", os.path.join(tmp, "w.npz")])
+        torch.cuda.synchronize()
+        fe.fused_frontend.launches = 0
+        t0 = time.perf_counter()
+        result = tr.train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fe.fused_frontend.launches
+        with np.load(result.out) as f:
+            written = {k: f[k] for k in f.files}
+    log("trainer, %d steps of %d x %.0f s at %d Hz: %.3f s wall, held-out accuracy %.4f, "
+        "frontend launches %d, losses first %.4f last %.4f"
+        % (TRAIN_STEPS, args.batch, args.clip_seconds, args.frame_rate, wall, result.accuracy,
+           launches, result.losses[0], result.losses[-1]))
+    if launches != TRAIN_STEPS + 1:
+        fail("trainer: %d frontend launches for %d steps and the held-out pass"
+             % (launches, TRAIN_STEPS))
+    if len(result.losses) != TRAIN_STEPS or not np.isfinite(result.losses).all():
+        fail("trainer: losses %r" % (result.losses,))
+    shapes = {k: v.shape for k, v in written.items()}
+    if shapes != nv.expected_param_shapes() or any(v.dtype != np.float32 for v in written.values()):
+        fail("trainer wrote %r" % ({k: (v.shape, v.dtype) for k, v in written.items()},))
+    net = nv.NeuralVADNet()
+    net.load_state_dict(nv.params_from_numpy(written))
+    net = net.to(dev).eval()
+    framed, rate, win, n = prepare_staged_input(pcm[: LABEL_MINUTES * 60 * RATE], RATE, SAMPLE_RATE)
+    labels, _state = vad._vad_program(torch.from_numpy(framed).to(dev), win, rate, n,
+                                      vad.initial_state(dev), net, 0.0, "silero")
+    labels = labels[:n].cpu().numpy()
+    if labels.shape != (LABEL_MINUTES * 60 * SAMPLE_RATE,) or not np.isfinite(labels).all():
+        fail("trained weights: silero labels %r, finite %s"
+             % (labels.shape, bool(np.isfinite(labels).all())))
+    step_ms, synth_ms = float(np.median(result.step_ms)), float(np.median(result.synth_ms))
+    log("trainer: %.4f card ms per step (median, CUDA events around features, forward, "
+        "backward and optimizer), %.3f host ms of synth_batch per batch (median), host "
+        "synthesis %.4f of the loop's wall; the trained net's silero labels over %d min: "
+        "mean %.4f" % (step_ms, synth_ms, float(np.sum(result.synth_ms)) / 1e3 / result.wall_s,
+                       LABEL_MINUTES, float(labels.mean())))
+    out.update(launches=launches, wall=wall, step_ms=step_ms, synth_ms=synth_ms,
+               accuracy=result.accuracy)
+
+    # (d) the data-parallel step: [cuda:0, cuda:0] (and every card) against [cuda:0]
+    pcm16, labels = batches[0][:2]
+    ref = None
+    for mesh in [[torch.device("cuda", 0)], [torch.device("cuda", 0)] * 2] + _distinct_cards():
+        step_fn, init_fn = make_vad_train_step(mesh)
+        net, optimizer, window = init_fn(torch.Generator().manual_seed(0), frame_rate=12000)
+        net.load_state_dict(nv.params_from_numpy(init))
+        loss = float(step_fn(net, optimizer, pcm16, labels, window))
+        params = nv.params_to_numpy(net)
+        if ref is None:
+            ref = (loss, params)
+            continue
+        what = "make_vad_train_step over %s vs [cuda:0]" % [str(d) for d in mesh]
+        _losses_close([loss], [ref[0]], MESH_LOSS_REL, what)
+        _params_close(params, ref[1], 3e-3, MESH_PARAM_TOL, MESH_PARAM_SHARE, what)
+    return out
+
+
+def eval_phase():
+    """Phase 11. Returns (launches of the card's eval, worst accuracy
+    difference, card accuracies, agreement report)."""
+    import torch
+
+    from ffsubsync_tpu_torch.models import eval_data
+    from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.scripts import eval_neural_vad as ev
+    from ffsubsync_tpu_torch.scripts import eval_vad_agreement as ag
+
+    # the clips are made once and served to both runs
+    real, made = eval_data.condition_clips, {}
+
+    def cached(*args, **kwargs):
+        key = (args, tuple(sorted(kwargs.items())))
+        if key not in made:
+            made[key] = real(*args, **kwargs)
+        return made[key]
+
+    eval_data.condition_clips = cached
+    try:
+        torch.cuda.synchronize()
+        fe.fused_frontend.launches = 0
+        t0 = time.perf_counter()
+        card = ev.evaluate(EVAL_BACKENDS, 1, EVAL_SECONDS, EVAL_RATE, 0, device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, fe.fused_frontend.launches
+        host = ev.evaluate(EVAL_BACKENDS, 1, EVAL_SECONDS, EVAL_RATE, 0, device=torch.device("cpu"))
+    finally:
+        eval_data.condition_clips = real
+    n_cond = len(eval_data.CONDITIONS)
+    log("adversarial eval, %d conditions x 1 clip of %.0f s at %d Hz, on the card (%.3f s wall "
+        "with the clips' synthesis, frontend launches %d):\n%s\non the CPU:\n%s"
+        % (n_cond, EVAL_SECONDS, EVAL_RATE, wall, launches,
+           ev.render_table(card, EVAL_BACKENDS), ev.render_table(host, EVAL_BACKENDS)))
+    if launches != n_cond * len(EVAL_BACKENDS):
+        fail("eval: %d frontend launches for %d conditions x %d backends (one clip each)"
+             % (launches, n_cond, len(EVAL_BACKENDS)))
+    worst = max(abs(card[c][b] - host[c][b]) for c in card for b in EVAL_BACKENDS)
+    log("adversarial eval card vs CPU: worst accuracy difference %.4f" % worst)
+    if worst > EVAL_ACC_TOL:
+        fail("eval: card and CPU accuracies differ by %.4f" % worst)
+    report = ag.run_synthetic(list(AGREE_VADS), AGREE_MINUTES, 12000, 0,
+                              scenarios=list(AGREE_SCENARIOS))
+    violations = ag.check_bars(report, 12000)
+    log("agreement harness, %s on %s (%.0f min at 12 kHz): %s; bar violations %r"
+        % (",".join(AGREE_VADS), ",".join(AGREE_SCENARIOS), AGREE_MINUTES,
+           json.dumps(report["per_scenario"]), violations))
+    if violations or set(report["per_scenario"]) != set(AGREE_SCENARIOS):
+        fail("agreement harness: %r" % (violations or report,))
+    return launches, worst, card, report
+
+
 def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
     """The ``--measure`` phases (see the module docstring)."""
     import numpy as np
@@ -1064,6 +1295,9 @@ def main():
         results["batch"] = batch_phase(make_batch_jobs(workdir, pcm, spans))
         results["sp"] = sp_phase(pcm, spans)
         results["fused_sp_env"] = (sp_gate_phase(workdir, wav_path, results["fused"][0]),)
+        train = train_phase(dev, pcm)
+        results["train"] = (train["launches"],)
+        results["eval"] = eval_phase()
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
         "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
@@ -1074,6 +1308,10 @@ def main():
            results["sp"][2][0], results["sp"][2][1]))
     auditok_errs, multiseg_errs = results["auditok"][4], results["multiseg"][3]
     shard_errs = results["sp"][1]
+    log("training: %d steps %.3f s wall, %.4f card ms and %.3f host synthesis ms per step, "
+        "held-out accuracy %.4f; eval card vs CPU worst accuracy difference %.4f"
+        % (TRAIN_STEPS, train["wall"], train["step_ms"], train["synth_ms"], train["accuracy"],
+           results["eval"][1]))
     kernels = {
         "kernels": [
             {
@@ -1083,15 +1321,21 @@ def main():
                 "replaces": "ffsubsync_tpu/ops/pallas/frontend.py:225",
                 "launches": results["fused"][0],
                 # worst log-mel abs error over every comparison (phases 3, 6,
-                # 7 and 9)
-                "max_abs_err": max(worst["logmel"], chunk_errs["logmel"],
-                                   auditok_errs["logmel"], multiseg_errs["logmel"],
-                                   shard_errs["logmel"]),
+                # 7, 9 and 10)
+                "max_abs_err": max([worst["logmel"], chunk_errs["logmel"],
+                                    auditok_errs["logmel"], multiseg_errs["logmel"],
+                                    shard_errs["logmel"]]
+                                   + [e["logmel"] for e in train["errs"].values()]),
                 # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
                 "auditok_max_abs_err": auditok_errs,
                 "multiseg_max_abs_err": multiseg_errs,
                 "sp_shard_max_abs_err": shard_errs,
+                # the trainer's two launch shapes (phase 10), each with its
+                # kernel and plain milliseconds
+                "train_max_abs_err": train["errs"],
+                "train_ms": train["ms"],
+                "train_plain_ms": train["plain_ms"],
                 # at the 45-minute chunk [270000, 120] int8 (CUDA events)
                 "ms": chunk["ms"],
                 "plain_ms": chunk["plain_ms"],
@@ -1112,9 +1356,10 @@ def main():
                 "ptxas": ptxas,
                 "spill_bytes": spills,
                 "sass_mma": sass_mma,
-                # launches of each path's own run (phases 4 and 6-9; "sp" is
+                # launches of each path's own run (phases 4, 6-11; "sp" is
                 # one sharded call on 4 shards, "fused_sp_env" the CLI sync
-                # with FFS_TPU_SP_VAD=1)
+                # with FFS_TPU_SP_VAD=1, "train" the trainer's 30 steps and
+                # held-out pass, "eval" the card's adversarial eval)
                 "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]

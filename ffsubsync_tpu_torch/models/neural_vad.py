@@ -115,7 +115,7 @@ def has_trained_weights(rate: int) -> bool:
 def _box_mean(
     v: torch.Tensor, vm: torch.Tensor, k: int, nonneg: bool = False
 ) -> torch.Tensor:
-    """Centered ±k box mean of a [T] series over its valid rows only.
+    """Centered ±k box mean of a [..., T] series over its valid rows only.
 
     ``nonneg=True`` declares the input non-negative and clamps the result at
     zero: the box sum is a difference of float32 prefix sums, and CUDA's
@@ -124,38 +124,40 @@ def _box_mean(
     come out slightly negative — ``sqrt`` of it is a NaN that the convs
     smear into valid windows (the reference hit this on the TPU).
     """
-    zero = torch.zeros((1,), dtype=v.dtype, device=v.device)
-    s = torch.cat([zero, torch.cumsum(v * vm, dim=0)])
-    c = torch.cat([zero, torch.cumsum(vm, dim=0)])
-    t = v.shape[0]
+    zero = torch.zeros(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
+    s = torch.cat([zero, torch.cumsum(v * vm, dim=-1)], dim=-1)
+    c = torch.cat([zero, torch.cumsum(vm, dim=-1)], dim=-1)
+    t = v.shape[-1]
     i = torch.arange(t, device=v.device)
     lo = torch.clamp(i - k, min=0)
     hi = torch.clamp(i + k, max=t - 1)
-    num = s[hi + 1] - s[lo]
+    num = s[..., hi + 1] - s[..., lo]
     if nonneg:
         num = torch.clamp(num, min=0.0)
-    den = torch.clamp(c[hi + 1] - c[lo], min=1.0)
+    den = torch.clamp(c[..., hi + 1] - c[..., lo], min=1.0)
     return num / den
 
 
 def _aux_channels(x: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
-    """[T, 3] engineered channels: softmax-spectrum flux, its ±0.3 s box
-    mean, and local energy-modulation depth; all zero at masked rows and
-    computed over valid rows only (``ffsubsync_tpu`` ``_aux_channels``)."""
-    p = torch.softmax(x, dim=1)
-    prev = torch.cat([p[:1], p[:-1]], dim=0)
-    prev_ok = torch.cat([torch.zeros_like(vm[:1]), vm[:-1]])
-    flux = 0.5 * torch.sum(torch.abs(p - prev), dim=1) * prev_ok * vm
-    e = torch.mean(x, dim=1) * vm
+    """[..., T, 3] engineered channels of feats [..., T, 40]: softmax-spectrum
+    flux, its ±0.3 s box mean, and local energy-modulation depth; all zero
+    at masked rows and computed over valid rows only (``ffsubsync_tpu``
+    ``_aux_channels``)."""
+    p = torch.softmax(x, dim=-1)
+    prev = torch.cat([p[..., :1, :], p[..., :-1, :]], dim=-2)
+    prev_ok = torch.cat([torch.zeros_like(vm[..., :1]), vm[..., :-1]], dim=-1)
+    flux = 0.5 * torch.sum(torch.abs(p - prev), dim=-1) * prev_ok * vm
+    e = torch.mean(x, dim=-1) * vm
     em = (e - _box_mean(e, vm, 15)) * vm
     mod = torch.sqrt(_box_mean(em * em, vm, 30, nonneg=True) + 1e-6) * vm
     return torch.stack(
-        [flux, _box_mean(flux, vm, 30, nonneg=True) * vm, mod], dim=1
+        [flux, _box_mean(flux, vm, 30, nonneg=True) * vm, mod], dim=-1
     )
 
 
 class NeuralVADNet(nn.Module):
-    """Normalized feats [T, 40] + valid mask [T] -> speech probability [T].
+    """Normalized feats [T, 40] + valid mask [T] -> speech probability [T],
+    or a batch of clips: [B, T, 40] + [B, T] -> [B, T].
 
     ``vm`` marks the contiguous run of rows holding real features; the
     caller has zeroed ``x`` outside it. Activations are re-masked after
@@ -172,12 +174,16 @@ class NeuralVADNet(nn.Module):
         self.out = nn.Linear(HIDDEN, 1)
 
     def forward(self, x: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([x, _aux_channels(x, vm)], dim=1)  # [T, 43]
-        mask = vm[None, None, :]
-        h = (F.relu(self.inp(x)) * vm[:, None]).T[None]  # [1, H, T]
+        x = torch.cat([x, _aux_channels(x, vm)], dim=-1)  # [..., T, 43]
+        h = (F.relu(self.inp(x)) * vm[..., None]).transpose(-1, -2)  # [..., H, T]
+        if h.dim() == 2:
+            h = h[None]  # one clip: a batch of 1
+        mask = vm[..., None, :]
         for conv in self.convs:
             h = (F.relu(conv(h)) + h) * mask  # residual
-        return torch.sigmoid(self.out(h[0].T)[:, 0])
+        if vm.dim() == 1:
+            h = h[0]
+        return torch.sigmoid(self.out(h.transpose(-1, -2))[..., 0])
 
 
 def params_from_numpy(d) -> Dict[str, torch.Tensor]:
@@ -197,6 +203,31 @@ def params_from_numpy(d) -> Dict[str, torch.Tensor]:
             np.asarray(d["b_conv%d" % i], np.float32)
         )
     return {k: v.contiguous() for k, v in sd.items()}
+
+
+def params_to_numpy(net: NeuralVADNet) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`: the net's parameters as
+    float32 numpy arrays in the JAX layout (the shipped .npz files')."""
+    return jax_layout(net.state_dict())
+
+
+def jax_layout(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Tensors named as :class:`NeuralVADNet`'s parameters (the parameters,
+    their gradients, an optimizer's moments) as float32 numpy arrays in the
+    JAX layout: dense weights transposed, conv ``[H_out, H_in, K]`` back to
+    ``[K, H_in, H_out]``."""
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    d = {
+        "w_in": sd["inp.weight"].T,
+        "b_in": sd["inp.bias"],
+        "w_out": sd["out.weight"].T,
+        "b_out": sd["out.bias"],
+    }
+    for i in range(len(DILATIONS)):
+        d["w_conv%d" % i] = sd["convs.%d.weight" % i].permute(2, 1, 0)
+        d["b_conv%d" % i] = sd["convs.%d.bias" % i]
+    # copies: a CPU tensor's .numpy() shares the live parameter's memory
+    return {k: np.array(v.numpy(), dtype=np.float32, order="C") for k, v in d.items()}
 
 
 def load_net(rate: int, device: torch.device) -> NeuralVADNet:
@@ -248,3 +279,33 @@ def probs_from_feats(
     x = torch.where(mask, x, 0.0)
     with torch.no_grad():
         return net(x, mask[:, 0].to(feats.dtype))
+
+
+def apply_model(net: NeuralVADNet, feats: torch.Tensor) -> torch.Tensor:
+    """Log-mel feats [T, 40] or [B, T, 40] -> speech probability [T] or
+    [B, T], each clip normalized over all its rows (population std, as
+    ``jnp.std``) and every row valid (``ffsubsync_tpu`` ``apply_model``).
+    Differentiable: the trainer's forward pass."""
+    mean = torch.mean(feats, dim=-2, keepdim=True)
+    std = torch.std(feats, dim=-2, keepdim=True, correction=0) + 1e-3
+    vm = torch.ones(feats.shape[:-1], dtype=feats.dtype, device=feats.device)
+    return net((feats - mean) / std, vm)
+
+
+def vad_loss(
+    net: NeuralVADNet,
+    feats: torch.Tensor,
+    labels: torch.Tensor,
+    weights: torch.Tensor,
+    total_weight: float,
+) -> torch.Tensor:
+    """The trainer's loss over clips [B, T, 40] with window labels [B, T']
+    and weights [B]: each clip's mean binary cross-entropy ``-(y log(p +
+    1e-6) + (1 - y) log(1 - p + 1e-6))`` over its first T' windows, then
+    ``Σ wᵢ lossᵢ / total_weight``. A share of a larger batch passes the
+    whole batch's weight, so the shares' losses (and gradients) add up to
+    the batch's."""
+    probs = apply_model(net, feats)[:, : labels.shape[1]]
+    eps = 1e-6
+    bce = -(labels * torch.log(probs + eps) + (1 - labels) * torch.log(1 - probs + eps))
+    return torch.sum(torch.mean(bce, dim=1) * weights) / total_weight

@@ -127,3 +127,29 @@ def compute_frontend(
         torch.from_numpy(framed).to(device), window, rate
     )
     return logmel, bands, total, n_windows
+
+
+def log_mel_features(
+    pcm_i16, frame_rate: int, sample_rate: int, device: torch.device
+) -> torch.Tensor:
+    """Log-mel features [B, n_windows, 40] of a batch of int16 clips
+    [B, N] at their own rate, ``n_windows = N // window``: the trainer's
+    feature pass (``ffsubsync_tpu`` ``log_mel_features``). No decimation
+    and no µ-law: the clips go to :func:`~ffsubsync_tpu_torch.ops.frontend.
+    fused_frontend` framed as int16 ``[B·n_windows, window]``, one kernel
+    launch on a CUDA ``device``. Features are data, not parameters: no
+    gradient flows through them."""
+    from ffsubsync_tpu_torch.ops.frontend import fused_frontend
+
+    pcm = torch.as_tensor(pcm_i16)
+    if pcm.dtype != torch.int16 or pcm.dim() != 2:
+        raise ValueError("log_mel_features wants int16 clips [B, N], got %s %r"
+                         % (pcm.dtype, tuple(pcm.shape)))
+    window = frames_per_window(frame_rate, sample_rate)
+    b, n_windows = pcm.shape[0], pcm.shape[1] // window
+    framed = pcm[:, : n_windows * window].reshape(b * n_windows, window)
+    with torch.no_grad():
+        logmel, _bands, _total = fused_frontend(
+            framed.to(device).contiguous(), window, frame_rate
+        )
+    return logmel.view(b, n_windows, -1)

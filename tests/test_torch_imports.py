@@ -17,7 +17,8 @@ PKG = os.path.join(REPO, "ffsubsync_tpu_torch")
 torch.set_num_threads(1)
 
 # any import of jax or of the JAX package now raises ImportError
-_BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["ffsubsync_tpu"] = None\n'
+_BLOCK = ('import sys\nsys.modules["jax"] = None\nsys.modules["optax"] = None\n'
+          'sys.modules["ffsubsync_tpu"] = None\n')
 
 _NO_JAX_SYNC = _BLOCK + r"""
 import os, tempfile
@@ -61,17 +62,27 @@ for result in results:
     assert result["sync_was_successful"], result
     assert abs(result["offset_seconds"] - 1.25) < 0.15, result
 result = results[0]
+from ffsubsync_tpu_torch.scripts import eval_neural_vad, train_neural_vad
+with tempfile.TemporaryDirectory() as d:
+    trained = train_neural_vad.train(train_neural_vad.make_parser().parse_args(
+        ["--steps", "2", "--batch", "2", "--clip-seconds", "2", "--frame-rate", "12000",
+         "--out", os.path.join(d, "w.npz"), "--platform", "cpu"]))
+    assert len(trained.losses) == 2 and np.isfinite(trained.losses).all()
+    assert os.path.exists(trained.out)
+accuracy = eval_neural_vad.evaluate(["fused"], 1, 3.0, 12000, 0, conditions=["clipped"])
+assert 0.0 <= accuracy["clipped"]["fused"] <= 1.0
 loaded = [m for m, mod in sys.modules.items()
-          if mod is not None and m.split(".")[0] in ("jax", "ffsubsync_tpu")]
+          if mod is not None and m.split(".")[0] in ("jax", "optax", "ffsubsync_tpu")]
 assert not loaded, loaded
 print("NO_JAX_SYNC_OK", result["offset_seconds"])
 """
 
 
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
-    """The fused, auditok, multi-segment and batch syncs of a WAV and the
-    sharded VAD, with jax and the JAX package made unimportable and the
-    fixtures taken from the port; no module of either loads."""
+    """The fused, auditok, multi-segment and batch syncs of a WAV, the
+    sharded VAD, two training steps and one eval condition, with jax, optax
+    and the JAX package made unimportable and the fixtures taken from the
+    port; no module of any of them loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run(
@@ -131,7 +142,7 @@ def _names(root, path):
     return found
 
 
-@pytest.mark.parametrize("root", ["jax", "ffsubsync_tpu"])
+@pytest.mark.parametrize("root", ["jax", "optax", "ffsubsync_tpu"])
 def test_no_source_file_imports(root):
     """An AST scan: no ``import``/``from`` of ``root`` or a module under it,
     and no string naming one, in the port or in its two scripts."""

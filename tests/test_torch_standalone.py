@@ -32,6 +32,7 @@ VERBATIM = [
     "subs/ssa_format.py", "subs/formats.py", "subs/parser.py", "subs/transforms.py",
     "subs/raster.py",
     "media/ffmpeg.py", "media/wav.py", "media/embedded.py", "media/pgs.py",
+    "models/synth_data.py", "models/eval_data.py",
 ]
 # functions and classes copied into a port module that does more
 MERGED = [
