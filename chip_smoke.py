@@ -56,11 +56,12 @@ needs no network and no jax. Phases, each fatal on failure:
    minutes; and a CLI sync with ``FFS_TPU_SP_VAD=1``, which on one card
    keeps the chunked path (the gate needs two or more cards);
 10. training (``scripts/train_neural_vad``) at the shipped net's full
-    width: the kernel against its plain version at the trainer's two launch
-    shapes (8 clips of 10 s as int16 ``[8000, 120]`` and ``[8000, 480]``);
-    three steps of the script's optimizer on the card against the same on
-    the CPU; the trainer's entry in-process (``--frame-rate 12000 --steps
-    30``, one kernel launch per step and one for the held-out pass), its
+    width: the kernel against its plain version at the trainer's launch
+    shapes (8 clips of 10 s as int16 ``[8000, 120]`` and ``[8000, 480]``,
+    the held-out pass's 16 clips ``[16000, 120]``); three steps of the
+    script's optimizer on the card against the same on the CPU; the
+    trainer's entry in-process (``--frame-rate 12000 --steps 5``, one
+    kernel launch per step and one for the held-out pass), its
     weights written in the JAX layout and driving the card's silero program
     over 10 minutes of the WAV; and ``make_vad_train_step`` over
     ``[cuda:0, cuda:0]`` (and every card, where there are two or more)
@@ -70,7 +71,10 @@ needs no network and no jax. Phases, each fatal on failure:
     and auditok backends on the card against the CPU, and
     ``scripts/eval_vad_agreement.run_synthetic`` (fused, silero, webrtc) on
     the ``clean`` and ``music_bed`` movies of 3 minutes at 12 kHz, held to
-    ``check_bars``.
+    ``check_bars``, one kernel launch per dispatched chunk and the labels
+    reaching the aligner on the card; the kernel against its plain version
+    on the first staged input of each (one condition clip, ``[3000, 120]``
+    int8, and one movie, ``[18000, 120]`` int8).
 
 Every path is driven with the kernel's launch count set to 0 just before
 and read just after. The last three lines of standard output are one JSON
@@ -117,18 +121,22 @@ SP_MODES = ("weighted", "webrtc", "silero")
 # CPU, the 4-shard program 6), so at most SP_FLIPS of windows may differ by
 # a whole vote
 SP_TOL, SP_AGREEMENT, SP_MAX_DIFF, SP_FLIPS = 0.02, 0.999, 0.05, 1e-4
-# phase 10: the trainer's batch (its defaults) at the rates of its two
-# launch shapes, and the in-process run
-TRAIN_RATES, TRAIN_CLIPS, TRAIN_CLIP_S, TRAIN_STEPS = (12000, 48000), 8, 10.0, 30
-# card against CPU, three steps of the script's optimizer at 12 kHz
-# (learning rates 0, 1e-3, 2e-3): the per-step loss relative, and the
+# phase 10: the trainer's launch shapes, (rate, clips of TRAIN_CLIP_S, seed):
+# its batch (its defaults) at 12 and 48 kHz, and its held-out pass (16
+# clips of seed + 1); the in-process run takes TRAIN_STEPS steps (each
+# check holds at a few; more would only add the host's synthesis)
+TRAIN_SHAPES = ((12000, 8, 0), (48000, 8, 0), (12000, 16, 1))
+TRAIN_CLIP_S, TRAIN_STEPS = 10.0, 5
+# card against CPU, three steps of the script's optimizer at 12 kHz under
+# the schedule of a TRAIN_LR_STEPS-step run (learning rates 0, 1e-3,
+# 2e-3): the per-step loss relative, and the
 # parameters within TRAIN_PARAM_TOL on TRAIN_PARAM_SHARE of the entries and
 # within twice the summed learning rates on all. The kernel's features
 # differ from the plain ones by up to TOLS, and Adam's normalized step lets
 # an entry whose gradient is near zero step either way. Measured on one
 # H100: losses 1.46e-3 apart, 0.99604 of the parameters within 1e-4, the
 # largest difference 3.6e-3 of the 6e-3 allowed
-TRAIN_LOSS_REL, TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 5e-3, 1e-4, 0.99
+TRAIN_LR_STEPS, TRAIN_LOSS_REL, TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 30, 5e-3, 1e-4, 0.99
 # mesh against one device (tests/test_torch_train.py's bounds)
 MESH_LOSS_REL, MESH_PARAM_TOL, MESH_PARAM_SHARE = 1e-4, 1e-5, 0.99
 # phase 11: one clip per adversarial condition, and the agreement movies
@@ -996,17 +1004,18 @@ def train_phase(dev, pcm):
     from ffsubsync_tpu_torch.scripts import train_neural_vad as tr
 
     out = {"errs": {}, "ms": {}, "plain_ms": {}}
-    # (a) the kernel against its plain version at both launch shapes
-    for rate in TRAIN_RATES:
+    # (a) the kernel against its plain version at each launch shape
+    for rate, clips, seed in TRAIN_SHAPES:
         window = rate // SAMPLE_RATE
-        pcm16, _labels = synth_batch(np.random.RandomState(0), TRAIN_CLIPS, TRAIN_CLIP_S,
+        pcm16, _labels = synth_batch(np.random.RandomState(seed), clips, TRAIN_CLIP_S,
                                      rate, SAMPLE_RATE)
         x = torch.from_numpy(pcm16.reshape(-1, window)).to(dev)
         got = fe.fused_frontend(x, window, rate)
         torch.cuda.synchronize()
         label = _shape(x)
         out["errs"][label] = compare(got, fe.frontend_plain(x, window, rate),
-                                     "training batch %s at %d Hz" % (label, rate))
+                                     "training features, %d clips of seed %d at %d Hz, %s"
+                                     % (clips, seed, rate, label))
         out["ms"][label] = median_ms(lambda: fe.fused_frontend(x, window, rate),
                                      calls=KERNEL_CALLS)
         out["plain_ms"][label] = median_ms(lambda: fe.frontend_plain(x, window, rate),
@@ -1015,7 +1024,7 @@ def train_phase(dev, pcm):
             % (label, out["ms"][label], out["plain_ms"][label]))
 
     # (b) three steps of the script's optimizer, card against CPU
-    args = tr.make_parser().parse_args(["--frame-rate", "12000", "--steps", str(TRAIN_STEPS)])
+    args = tr.make_parser().parse_args(["--frame-rate", "12000", "--steps", str(TRAIN_LR_STEPS)])
     window = args.frame_rate // SAMPLE_RATE
     rng = np.random.RandomState(1)
     batches = [synth_batch(rng, args.batch, args.clip_seconds, args.frame_rate, SAMPLE_RATE,
@@ -1099,9 +1108,28 @@ def train_phase(dev, pcm):
     return out
 
 
+def _first_input_vs_plain(ins, what):
+    """The kernel against its plain version on the first staged input that
+    a driven path gave ``_vad_program`` (on the card, as that path staged
+    it). Returns the max abs error of each output."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops import frontend as fe
+
+    if ins.first_input is None:
+        fail("%s: no VAD program ran" % what)
+    x, window, rate = ins.first_input
+    got = fe.fused_frontend(x, window, rate)
+    torch.cuda.synchronize()
+    return compare(got, fe.frontend_plain(x, window, rate),
+                   "%s as staged, %s at %d Hz" % (what, _shape(x), rate))
+
+
 def eval_phase():
-    """Phase 11. Returns (launches of the card's eval, worst accuracy
-    difference, card accuracies, agreement report)."""
+    """Phase 11. Returns (launches of the card's adversarial eval, worst
+    accuracy difference, the kernel's errors against its plain version at
+    the eval's and the agreement harness's launch shapes, launches of the
+    agreement harness)."""
     import torch
 
     from ffsubsync_tpu_torch.models import eval_data
@@ -1121,14 +1149,17 @@ def eval_phase():
     eval_data.condition_clips = cached
     try:
         torch.cuda.synchronize()
-        fe.fused_frontend.launches = 0
-        t0 = time.perf_counter()
-        card = ev.evaluate(EVAL_BACKENDS, 1, EVAL_SECONDS, EVAL_RATE, 0, device=torch.device("cuda"))
-        torch.cuda.synchronize()
-        wall, launches = time.perf_counter() - t0, fe.fused_frontend.launches
+        with Instruments() as ins:
+            t0 = time.perf_counter()
+            card = ev.evaluate(EVAL_BACKENDS, 1, EVAL_SECONDS, EVAL_RATE, 0,
+                               device=torch.device("cuda"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = ins.launches
         host = ev.evaluate(EVAL_BACKENDS, 1, EVAL_SECONDS, EVAL_RATE, 0, device=torch.device("cpu"))
     finally:
         eval_data.condition_clips = real
+    errs = {"eval": _first_input_vs_plain(ins, "the eval's first condition clip")}
     n_cond = len(eval_data.CONDITIONS)
     log("adversarial eval, %d conditions x 1 clip of %.0f s at %d Hz, on the card (%.3f s wall "
         "with the clips' synthesis, frontend launches %d):\n%s\non the CPU:\n%s"
@@ -1141,15 +1172,24 @@ def eval_phase():
     log("adversarial eval card vs CPU: worst accuracy difference %.4f" % worst)
     if worst > EVAL_ACC_TOL:
         fail("eval: card and CPU accuracies differ by %.4f" % worst)
-    report = ag.run_synthetic(list(AGREE_VADS), AGREE_MINUTES, 12000, 0,
-                              scenarios=list(AGREE_SCENARIOS))
+    with Instruments() as ins:
+        report = ag.run_synthetic(list(AGREE_VADS), AGREE_MINUTES, 12000, 0,
+                                  scenarios=list(AGREE_SCENARIOS))
     violations = ag.check_bars(report, 12000)
-    log("agreement harness, %s on %s (%.0f min at 12 kHz): %s; bar violations %r"
+    syncs = len(AGREE_VADS) * len(AGREE_SCENARIOS)
+    log("agreement harness, %s on %s (%.0f min at 12 kHz): %s; bar violations %r; "
+        "frontend launches %d for %d syncs, chunks dispatched %d"
         % (",".join(AGREE_VADS), ",".join(AGREE_SCENARIOS), AGREE_MINUTES,
-           json.dumps(report["per_scenario"]), violations))
+           json.dumps(report["per_scenario"]), violations, ins.launches, syncs,
+           len(ins.programs)))
     if violations or set(report["per_scenario"]) != set(AGREE_SCENARIOS):
         fail("agreement harness: %r" % (violations or report,))
-    return launches, worst, card, report
+    if ins.launches < syncs or ins.launches != len(ins.programs):
+        fail("agreement harness: %d frontend launches for %d dispatched chunks of %d syncs"
+             % (ins.launches, len(ins.programs), syncs))
+    _on_card([ref for ref, _c, _o in ins.searches], "agreement harness")
+    errs["agree"] = _first_input_vs_plain(ins, "the agreement harness's first movie")
+    return launches, worst, errs, ins.launches
 
 
 def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
@@ -1298,6 +1338,8 @@ def main():
         train = train_phase(dev, pcm)
         results["train"] = (train["launches"],)
         results["eval"] = eval_phase()
+        results["agree"] = (results["eval"][3],)
+        eval_errs = results["eval"][2]
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
         "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
@@ -1321,19 +1363,24 @@ def main():
                 "replaces": "ffsubsync_tpu/ops/pallas/frontend.py:225",
                 "launches": results["fused"][0],
                 # worst log-mel abs error over every comparison (phases 3, 6,
-                # 7, 9 and 10)
+                # 7, 9, 10 and 11)
                 "max_abs_err": max([worst["logmel"], chunk_errs["logmel"],
                                     auditok_errs["logmel"], multiseg_errs["logmel"],
                                     shard_errs["logmel"]]
-                                   + [e["logmel"] for e in train["errs"].values()]),
+                                   + [e["logmel"] for e in train["errs"].values()]
+                                   + [e["logmel"] for e in eval_errs.values()]),
                 # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
                 "auditok_max_abs_err": auditok_errs,
                 "multiseg_max_abs_err": multiseg_errs,
                 "sp_shard_max_abs_err": shard_errs,
-                # the trainer's two launch shapes (phase 10), each with its
-                # kernel and plain milliseconds
+                # the trainer's launch shapes (phase 10: its batch at 12 and
+                # 48 kHz, its held-out pass), each with its kernel and plain
+                # milliseconds
                 "train_max_abs_err": train["errs"],
+                # the adversarial eval's and the agreement harness's first
+                # staged inputs (phase 11)
+                "eval_max_abs_err": eval_errs,
                 "train_ms": train["ms"],
                 "train_plain_ms": train["plain_ms"],
                 # at the 45-minute chunk [270000, 120] int8 (CUDA events)
@@ -1358,8 +1405,9 @@ def main():
                 "sass_mma": sass_mma,
                 # launches of each path's own run (phases 4, 6-11; "sp" is
                 # one sharded call on 4 shards, "fused_sp_env" the CLI sync
-                # with FFS_TPU_SP_VAD=1, "train" the trainer's 30 steps and
-                # held-out pass, "eval" the card's adversarial eval)
+                # with FFS_TPU_SP_VAD=1, "train" the trainer's steps and
+                # held-out pass, "eval" the card's adversarial eval, "agree"
+                # the agreement harness's syncs)
                 "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]

@@ -174,16 +174,16 @@ class NeuralVADNet(nn.Module):
         self.out = nn.Linear(HIDDEN, 1)
 
     def forward(self, x: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([x, _aux_channels(x, vm)], dim=-1)  # [..., T, 43]
-        h = (F.relu(self.inp(x)) * vm[..., None]).transpose(-1, -2)  # [..., H, T]
-        if h.dim() == 2:
-            h = h[None]  # one clip: a batch of 1
-        mask = vm[..., None, :]
+        single = vm.dim() == 1
+        if single:  # one clip: a batch of 1
+            x, vm = x[None], vm[None]
+        x = torch.cat([x, _aux_channels(x, vm)], dim=-1)  # [B, T, 43]
+        h = (F.relu(self.inp(x)) * vm[..., None]).transpose(-1, -2)  # [B, H, T]
+        mask = vm[:, None, :]
         for conv in self.convs:
             h = (F.relu(conv(h)) + h) * mask  # residual
-        if vm.dim() == 1:
-            h = h[0]
-        return torch.sigmoid(self.out(h.transpose(-1, -2))[..., 0])
+        p = torch.sigmoid(self.out(h.transpose(-1, -2))[..., 0])
+        return p[0] if single else p
 
 
 def params_from_numpy(d) -> Dict[str, torch.Tensor]:
