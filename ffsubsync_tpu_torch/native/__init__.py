@@ -275,7 +275,8 @@ def stage_for_device(
         return out
     for _ in range(decim_stages):
         pcm = decimate2(pcm)
-    return frame_for_device(pcm, window, wpad, t_pad, mulaw=True)
+    # samples past t_pad windows are dropped, as the library drops them
+    return frame_for_device(pcm[: t_pad * window], window, wpad, t_pad, mulaw=True)
 
 
 def mulaw6_encode_host(pcm_i16: np.ndarray) -> np.ndarray:
@@ -327,6 +328,7 @@ def stage_for_device_p6(
         return out.view(np.int8)
     for _ in range(decim_stages):
         pcm = decimate2(pcm)
+    pcm = pcm[: t_pad * window]  # clamped to t_pad windows, as in the library
     codes = np.full(t_pad * window, 31, np.uint8)
     codes[: len(pcm)] = mulaw6_encode_host(pcm)
     return pack6(codes.reshape(t_pad, window)).view(np.int8)

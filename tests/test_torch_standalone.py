@@ -133,6 +133,9 @@ NATIVE_CALLS = {
     # (function name, arguments); each runs on both libraries
     "stage_for_device": ("stage_for_device", (_pcm(48000 + 333, 1), 2, 120, 128, 110)),
     "stage_for_device_p6": ("stage_for_device_p6", (_pcm(24000 + 77, 2), 1, 120, 105)),
+    # more decimated samples than t_pad windows hold: the library clamps
+    "stage_for_device_clamped": ("stage_for_device", (_pcm(24000, 8), 1, 120, 128, 50)),
+    "stage_for_device_p6_clamped": ("stage_for_device_p6", (_pcm(24000, 9), 1, 120, 50)),
     "frame_for_device_mulaw": ("frame_for_device", (_pcm(9000 + 5, 3), 160, 160, 60, True)),
     "frame_for_device_i16": ("frame_for_device", (_pcm(9000 + 5, 4), 80, 128, 120, False)),
     "window_energy_db": ("window_energy_db", (_pcm(12000 + 61, 5), 120)),
