@@ -5,7 +5,8 @@
 Offset conventions, the ``(-max, max]`` window, the descending-offset
 tie-break and the exact rescore are the reference's. The host half below
 (``Alignment`` through ``_ref_length``) is a verbatim copy of the JAX
-package's host code; :func:`align_candidates` sends the device half to
+package's host code; :func:`align_candidates` and the device branch of
+:func:`align_signal_pair` send the device half to
 :mod:`ffsubsync_tpu_torch.ops.align_device`.
 """
 import logging
@@ -135,6 +136,15 @@ def _ref_length(ref: RefLike) -> int:
     return int(len(ref))
 
 
+def prepare_ref_pm(ref: RefLike, n: int, device: Optional[torch.device] = None) -> torch.Tensor:
+    """Build the device-resident ±1 reference signal of FFT length *n*, on
+    ``device`` (default: :func:`~ffsubsync_tpu_torch.device.get_device`)."""
+    from ffsubsync_tpu_torch.device import get_device
+    from ffsubsync_tpu_torch.ops import align_device
+
+    return align_device.prepare_ref_pm(ref, n, device or get_device())
+
+
 def align_candidates(
     ref: RefLike,
     candidates: Sequence[RasterSpec],
@@ -212,3 +222,62 @@ def pack_candidates(
             start_offs[i, j], cnts[i, j] = _offset_window(n, spec.n_samples, max_offset_samples)
     n_offsets = n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
     return starts, ends, weights, n_samples, start_offs, cnts, max(1, n_offsets)
+
+
+def align_signal_pair(
+    refstring: Union[str, np.ndarray, Sequence[float]],
+    substring: Union[str, np.ndarray, Sequence[float]],
+    max_offset_samples: Optional[int] = None,
+) -> Alignment:
+    """Align two raw 0/1 signals (string or array form) — library parity shim.
+
+    Accepts "10110"-style bitstrings like the reference's ``FFTAligner.fit``
+    (aligners.py:51-54). Runs on the host (numpy) unless
+    ``FFS_TPU_HOST_ALIGN=0`` sends the search to the device that
+    :func:`~ffsubsync_tpu_torch.device.get_device` names — these are
+    host-sized 100 Hz signals.
+    """
+    def _to_array(s):
+        if isinstance(s, str):
+            return np.array([int(ch) for ch in s], dtype=np.float64)
+        return np.asarray(s, dtype=np.float64)
+
+    ref = _to_array(refstring)
+    sub = _to_array(substring)
+    if len(ref) == 0 or len(sub) == 0:
+        raise FailedToFindAlignmentException(
+            "cannot align empty speech data "
+            "(reference length=%d, subtitle length=%d); "
+            "the reference or subtitles may contain no detectable speech"
+            % (len(ref), len(sub))
+        )
+    n = next_pow2(len(ref) + len(sub))
+    if _resolve_host_align(True):
+        ref_pm = _host_pm(ref, n)
+        sub_pm = _host_pm(sub, n)
+        c2 = np.fft.irfft(
+            np.conj(np.fft.rfft(sub_pm)) * np.fft.rfft(ref_pm), n=n
+        )
+        hi, cnt = _offset_window(n, len(sub), max_offset_samples)
+        offs = hi - np.arange(max(cnt, 1))
+        best_off = int(offs[int(np.argmax(c2[np.mod(offs, n)]))])
+        score = float(np.dot(sub_pm, np.roll(ref_pm, -best_off)))
+        return Alignment(score, best_off)
+    from ffsubsync_tpu_torch.device import get_device
+    from ffsubsync_tpu_torch.ops import align_device
+
+    device = get_device()
+    ref_pm = prepare_ref_pm(ref.astype(np.float32), n, device)
+    sub_pm = prepare_ref_pm(sub.astype(np.float32), n, device)
+    hi, cnt = _offset_window(n, len(sub), max_offset_samples)
+    n_offsets = n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
+    n_offsets = max(1, n_offsets)
+    scores, offsets = align_device.align_signals(
+        ref_pm,
+        sub_pm[None, :],
+        torch.tensor([hi], device=device),
+        torch.tensor([cnt], device=device),
+        n,
+        n_offsets,
+    )
+    return Alignment(float(scores[0]), int(offsets[0]))

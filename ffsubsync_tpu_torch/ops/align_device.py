@@ -2,10 +2,11 @@
 """Device half of the FFT alignment search, in PyTorch.
 
 Counterpart of ``ffsubsync_tpu/ops/align_device.py``: rasterize every
-candidate's cue intervals on the device, score all candidates with one
-batched real-FFT cross-correlation, pick each one's best allowed offset
-(first maximum over *descending* offsets, the reference's tie-break) and
-re-score that offset with an exact dot product.
+candidate's cue intervals on the device (or take ±1 signals already built,
+:func:`align_signals`), score all candidates with one batched real-FFT
+cross-correlation, pick each one's best allowed offset (first maximum over
+*descending* offsets, the reference's tie-break) and re-score that offset
+with an exact dot product.
 """
 import numpy as np
 import torch
@@ -56,6 +57,31 @@ def align_specs(ref_pm, starts, ends, weights, n_samples, start_offs, cnts,
         starts.reshape(b * k, c), ends.reshape(b * k, c), weights.reshape(-1),
         n_samples.reshape(-1), n,
     ).reshape(b, k, n)
+    return _search(ref_pm, subs_pm, start_offs, cnts, n, n_offsets)
+
+
+def align_signals(ref_pm, subs_pm, start_offs, cnts, n: int, n_offsets: int):
+    """FFT cross-correlate + masked argmax + exact rescore of ``K``
+    already ±1-mapped signals against one reference
+    (``ffsubsync_tpu/ops/align_device.py::_align_signals_kernel``).
+
+    Args:
+      ref_pm: f32[n] ±1-mapped reference (zeros beyond its true length).
+      subs_pm: f32[K, n] ±1-mapped candidates (zeros beyond their lengths).
+      start_offs: int64[K] largest allowed offset per candidate.
+      cnts: int64[K] number of allowed offsets (descending from start_offs).
+    Returns:
+      (scores f32[K], offsets int64[K]) on the device.
+    """
+    scores, offsets = _search(ref_pm[None], subs_pm[None], start_offs[None], cnts[None],
+                              n, n_offsets)
+    return scores[0], offsets[0]
+
+
+def _search(ref_pm, subs_pm, start_offs, cnts, n: int, n_offsets: int):
+    """The search shared by :func:`align_specs` and :func:`align_signals`
+    over references ``[B, n]`` and their candidates ``[B, K, n]``."""
+    k = subs_pm.shape[1]
     ref_f = torch.fft.rfft(ref_pm, dim=-1)
     sub_f = torch.fft.rfft(subs_pm, dim=-1)
     # c2[b, k, m] = sum_s subs_pm[b, k, s] * ref_pm[b, (s + m) mod n]

@@ -283,6 +283,10 @@ def main(argv=None) -> int:
         report = run_synthetic(
             vads, args.minutes, args.frame_rate, args.seed, scenarios=subset
         )
+    from ffsubsync_tpu_torch.ops.frontend import fused_frontend
+
+    # read by probe_webrtc_bias, which runs this harness in processes of its own
+    log("frontend kernel launches: %d" % fused_frontend.launches)
     print(json.dumps(report))
     if args.check_bars and not args.pairs:
         failures = check_bars(report, args.frame_rate)

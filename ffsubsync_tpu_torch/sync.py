@@ -59,6 +59,12 @@ MIN_FRAMERATE_RATIO = 0.9
 MAX_FRAMERATE_RATIO = 1.1
 
 
+def override(args: argparse.Namespace, **kwargs: Any) -> Dict[str, Any]:
+    args_dict = dict(args.__dict__)
+    args_dict.update(kwargs)
+    return args_dict
+
+
 def get_srt_source_maker(
     args: argparse.Namespace, srtin: Optional[str]
 ) -> Callable[[Optional[float]], Any]:

@@ -43,6 +43,9 @@ setup(
         "neural": ["flax", "optax"],
         "rich": ["rich"],
         "progress": ["tqdm"],
+        # the PyTorch/CUDA port (ffsubsync_tpu_torch); CUDA builds of torch
+        # come from PyTorch's own package index
+        "cuda": ["torch"],
     },
     entry_points={
         "console_scripts": [

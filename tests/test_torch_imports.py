@@ -71,6 +71,16 @@ with tempfile.TemporaryDirectory() as d:
     assert os.path.exists(trained.out)
 accuracy = eval_neural_vad.evaluate(["fused"], 1, 3.0, 12000, 0, conditions=["clipped"])
 assert 0.0 <= accuracy["clipped"]["fused"] <= 1.0
+from ffsubsync_tpu_torch.ops.align import align_signal_pair
+os.environ["FFS_TPU_HOST_ALIGN"] = "0"  # the device branch, on FFS_TORCH_DEVICE
+assert align_signal_pair("11001", "111001").offset == -1
+del os.environ["FFS_TPU_HOST_ALIGN"]
+import torch
+from ffsubsync_tpu_torch.scripts import probe_babble_ceiling
+probe = probe_babble_ceiling.train(probe_babble_ceiling.make_parser().parse_args(
+    ["--steps", "2", "--batch", "1", "--clip-seconds", "1"]), torch.device("cpu"))
+assert len(probe.losses) == 2 and np.isfinite(probe.losses).all()
+import ffsubsync_tpu_torch.gui
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and m.split(".")[0] in ("jax", "optax", "ffsubsync_tpu")]
 assert not loaded, loaded
@@ -80,9 +90,10 @@ print("NO_JAX_SYNC_OK", result["offset_seconds"])
 
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
     """The fused, auditok, multi-segment and batch syncs of a WAV, the
-    sharded VAD, two training steps and one eval condition, with jax, optax
-    and the JAX package made unimportable and the fixtures taken from the
-    port; no module of any of them loads."""
+    sharded VAD, two training steps, one eval condition, the device branch
+    of ``align_signal_pair``, two babble-probe steps and the GUI module,
+    with jax, optax and the JAX package made unimportable and the fixtures
+    taken from the port; no module of any of them loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run(

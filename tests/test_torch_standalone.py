@@ -36,7 +36,7 @@ VERBATIM = [
     "subs/ssa_format.py", "subs/formats.py", "subs/parser.py", "subs/transforms.py",
     "subs/raster.py",
     "media/ffmpeg.py", "media/wav.py", "media/embedded.py", "media/pgs.py",
-    "models/synth_data.py", "models/eval_data.py",
+    "models/synth_data.py", "models/eval_data.py", "gui.py",
 ]
 # functions and classes copied into a port module that does more
 MERGED = [
@@ -48,7 +48,7 @@ MERGED = [
     ("sync", name) for name in (
         "get_srt_source_maker", "get_framerate_ratios_to_try", "assess_alignment_quality",
         "gss_grid", "gss_narrow", "extract_subtitles_from_reference", "_setup_logging",
-        "_npy_savename", "validate_and_transform_args",
+        "_npy_savename", "validate_and_transform_args", "override",
     )
 ] + [
     ("models.synth_data", name)
