@@ -74,7 +74,25 @@ needs no network and no jax. Phases, each fatal on failure:
     ``check_bars``, one kernel launch per dispatched chunk and the labels
     reaching the aligner on the card; the kernel against its plain version
     on the first staged input of each (one condition clip, ``[3000, 120]``
-    int8, and one movie, ``[18000, 120]`` int8).
+    int8, and one movie, ``[18000, 120]`` int8);
+12. raw-signal alignment (``ops.align.align_signal_pair``): a 90-minute
+    pair of 0/1 signals at 100 Hz (540,000 samples each, the reference from
+    the synthetic movie's spans, the subtitle side that signal shifted by a
+    known offset), with ``max_offset_samples`` None and 6000, under
+    ``FFS_TPU_HOST_ALIGN=0``: the search must run on the card
+    (``align_device.align_signals`` on CUDA tensors), find the offset of
+    the host branch (or one whose exact score ties it) and its score within
+    1e-4 relative; the search's card milliseconds are timed;
+13. the three EVAL.md probe protocols, depth cut: the babble-ceiling probe
+    (5 steps at batch 8 x 10 s, 12 kHz, then 2 held-out clips of 30 s per
+    condition), its losses and parameters held against the same steps on
+    the CPU, the kernel against its plain version at its training and
+    scoring launches (``[8000, 120]`` and ``[3000, 120]`` int16); the
+    noisy-jitter probe (seed 0, 3 minutes, fused and silero) in-process and
+    the webrtc-bias probe (seed 1, 3 minutes, all four music scenarios) as
+    a process of its own, each printed beside the committed artifact's row
+    (``EVAL_noisy_jitter.json``, ``EVAL_webrtc_bias.json``; offsets from the
+    synthetic truth, not speeds).
 
 Every path is driven with the kernel's launch count set to 0 just before
 and read just after. The last three lines of standard output are one JSON
@@ -143,6 +161,24 @@ MESH_LOSS_REL, MESH_PARAM_TOL, MESH_PARAM_SHARE = 1e-4, 1e-5, 0.99
 EVAL_SECONDS, EVAL_RATE, EVAL_ACC_TOL = 30.0, 48000, 0.01
 EVAL_BACKENDS = ("silero", "fused", "webrtc", "auditok")
 AGREE_VADS, AGREE_SCENARIOS, AGREE_MINUTES = ("fused", "silero", "webrtc"), ("clean", "music_bed"), 3.0
+# phase 12: the subtitle signal is the reference shifted by PAIR_SHIFT
+# samples (10 ms each); each search with these max_offset_samples; the
+# card's score against the host's, relative
+PAIR_SHIFT, PAIR_MAX_OFFSETS, PAIR_SCORE_REL = 734, (None, 6000), 1e-4
+# phase 13: the babble probe's steps and scoring clips per condition (its
+# defaults are 900 and 6); the jitter and bias probes' seed, length, VADs
+BABBLE_STEPS, BABBLE_SCORE_CLIPS = 5, 2
+JITTER_SEED, JITTER_MINUTES, JITTER_VADS = 0, 3.0, ("fused", "silero")
+BIAS_SEED, BIAS_MINUTES = 1, 3.0
+# the babble probe's 5 steps card against CPU: the losses relative, the
+# parameters within TRAIN_PARAM_TOL on BABBLE_PARAM_SHARE of the entries
+# and within twice the summed learning rates on all. The trajectories part
+# a little more with each step (kernel against plain features, then Adam);
+# measured on one H100: losses 2e-5, 2e-5, 2.5e-3, 3.7e-3 and 5.3e-3
+# apart, 0.99845 of the parameters within 1e-4, the largest difference
+# 8.6e-4 of 5.2e-3
+BABBLE_LOSS_REL, BABBLE_PARAM_SHARE = 1e-2, 0.99
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*parts):
@@ -1192,6 +1228,233 @@ def eval_phase():
     return launches, worst, errs, ins.launches
 
 
+def pair_phase(dev, spans):
+    """Phase 12. Returns a dict of what it measured."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu_torch.ops import align, align_device
+    from ffsubsync_tpu_torch.ops import frontend as fe
+
+    n_samples = MINUTES * 60 * SAMPLE_RATE
+    ref = np.zeros(n_samples)
+    for a, b in spans:
+        ref[int(round(a * SAMPLE_RATE)):int(round(b * SAMPLE_RATE))] = 1.0
+    sub = np.zeros(n_samples)  # sub[t] = ref[t + PAIR_SHIFT]
+    sub[: n_samples - PAIR_SHIFT] = ref[PAIR_SHIFT:]
+    n = align.next_pow2(2 * n_samples)
+    ref_pm64, sub_pm64 = np.zeros(n), np.zeros(n)  # for an exact score
+    ref_pm64[:n_samples], sub_pm64[:n_samples] = 2 * ref - 1, 2 * sub - 1
+    devices, real = [], align_device.align_signals
+
+    def recorded(ref_pm, *args):
+        devices.append(ref_pm.device)
+        return real(ref_pm, *args)
+
+    out = {"n": n, "launches": 0, "card_ms": {}, "call_s": {}, "host_s": {}}
+    saved = os.environ.pop("FFS_TPU_HOST_ALIGN", None)
+    try:
+        for max_off in PAIR_MAX_OFFSETS:
+            t0 = time.perf_counter()
+            host = align.align_signal_pair(ref, sub, max_off)  # the default: host
+            host_s = time.perf_counter() - t0
+            os.environ["FFS_TPU_HOST_ALIGN"] = "0"
+            align_device.align_signals = recorded
+            del devices[:]
+            fe.fused_frontend.launches = 0
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card = align.align_signal_pair(ref, sub, max_off)
+                torch.cuda.synchronize()
+                call_s = time.perf_counter() - t0
+            finally:
+                align_device.align_signals = real
+                del os.environ["FFS_TPU_HOST_ALIGN"]
+            out["launches"] += fe.fused_frontend.launches
+            what = "align_signal_pair of %d samples, max_offset_samples %s" % (n_samples, max_off)
+            if [d.type for d in devices] != [dev.type]:
+                fail("%s: the search ran on %r, not once on the card" % (what, devices))
+            if host.offset != PAIR_SHIFT:
+                fail("%s: the host branch found %d, the shift is %d" % (what, host.offset, PAIR_SHIFT))
+            rel = abs(card.score - host.score) / abs(host.score)
+            tie = ""
+            if card.offset != host.offset:
+                # C4: among offsets whose scores tie exactly, float32 FFT
+                # rounding decides the card's pick
+                exact = float(np.dot(sub_pm64, np.roll(ref_pm64, -card.offset)))
+                if exact != host.score:
+                    fail("%s: card offset %d (exact score %r), host %d (score %r)"
+                         % (what, card.offset, exact, host.offset, host.score))
+                tie = " (an exact tie with the host's %d)" % host.offset
+            if rel > PAIR_SCORE_REL or not np.isfinite(card.score):
+                fail("%s: card score %r, host %r" % (what, card.score, host.score))
+            # the search alone on resident inputs (CUDA events)
+            ref_pm = align.prepare_ref_pm(ref.astype(np.float32), n, dev)
+            sub_pm = align.prepare_ref_pm(sub.astype(np.float32), n, dev)[None]
+            hi, cnt = align._offset_window(n, n_samples, max_off)
+            n_offsets = max(1, n if max_off is None else min(2 * max_off, n))
+            bounds = (torch.tensor([hi], device=dev), torch.tensor([cnt], device=dev))
+            ms = median_ms(lambda: real(ref_pm, sub_pm, *bounds, n, n_offsets), n=10, warm=2,
+                           calls=3)
+            label = "max%s" % max_off
+            out["card_ms"][label], out["call_s"][label], out["host_s"][label] = ms, call_s, host_s
+            log("pair %s: host offset %d score %.1f (%.4f s); card offset %d%s score %.1f, "
+                "relative score difference %.3g; card search %.4f ms (align_signals on resident "
+                "[%d] inputs, CUDA events, median of 10 samples of 3 calls); the whole device-branch "
+                "call %.4f s with its host-to-card copies"
+                % (what, host.offset, host.score, host_s, card.offset, tie, card.score, rel, ms, n,
+                   call_s))
+    finally:
+        if saved is not None:
+            os.environ["FFS_TPU_HOST_ALIGN"] = saved
+    if out["launches"]:
+        fail("raw-signal alignment launched the frontend kernel %d times" % out["launches"])
+    return out
+
+
+def _artifact(name):
+    with open(os.path.join(HERE, name)) as f:
+        return json.loads(f.read().strip().splitlines()[-1])
+
+
+def babble_phase(dev):
+    """Phase 13, the babble-ceiling probe. Returns a dict of what it
+    measured."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu_torch.models import neural_vad as nv
+    from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.ops.features import log_mel_features
+    from ffsubsync_tpu_torch.parallel import batch
+    from ffsubsync_tpu_torch.scripts import probe_babble_ceiling as babble
+
+    args = babble.make_parser().parse_args(["--steps", str(BABBLE_STEPS)])
+    window = args.frame_rate // args.sample_rate
+    # the feature passes of the training step (parallel.batch) and of the
+    # scoring (the probe's own), each input's first of its shape kept
+    first, real = {}, log_mel_features
+
+    def recorded(pcm16, *a, **k):
+        first.setdefault(tuple(np.shape(pcm16)), pcm16)
+        return real(pcm16, *a, **k)
+
+    batch.log_mel_features = babble.log_mel_features = recorded
+    try:
+        torch.cuda.synchronize()
+        fe.fused_frontend.launches = 0
+        t0 = time.perf_counter()
+        run = babble.train(args, dev)
+        report = babble.score(run.net, args, dev, n_clips=BABBLE_SCORE_CLIPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fe.fused_frontend.launches
+    finally:
+        batch.log_mel_features = babble.log_mel_features = real
+    # a step's features, then per scoring clip the probe's and the shipped
+    # detector's
+    want = BABBLE_STEPS + 2 * BABBLE_SCORE_CLIPS * len(babble.CONDITIONS)
+    log("babble probe, %d steps of %d x %.0f s at %d Hz and %d clips of 30 s per condition: "
+        "%.3f s wall, frontend launches %d, losses %s, report %s"
+        % (BABBLE_STEPS, args.batch, args.clip_seconds, args.frame_rate, BABBLE_SCORE_CLIPS,
+           wall, launches, ["%.4f" % x for x in run.losses], json.dumps(report)))
+    if launches != want:
+        fail("babble probe: %d frontend launches, want %d" % (launches, want))
+    values = [v for row in report.values() for v in row.values()]
+    if (sorted(report) != sorted(babble.CONDITIONS) or not np.isfinite(run.losses).all()
+            or not all(0.0 <= v <= 1.0 for v in values)):
+        fail("babble probe: losses %r, report %r" % (run.losses, report))
+    out = {"errs": {}, "ms": {}, "plain_ms": {}, "bound_ms": {}, "launches": launches,
+           "wall": wall, "report": report}
+    if len(first) != 2:
+        fail("babble probe: feature inputs of shapes %r" % sorted(first))
+    for shape, pcm16 in first.items():
+        x = torch.from_numpy(np.ascontiguousarray(pcm16).reshape(-1, window)).to(dev)
+        got = fe.fused_frontend(x, window, args.frame_rate)
+        torch.cuda.synchronize()
+        label = _shape(x)
+        out["errs"][label] = compare(got, fe.frontend_plain(x, window, args.frame_rate),
+                                     "babble probe's first %d-clip features %s" % (shape[0], label))
+        out["ms"][label] = median_ms(lambda: fe.fused_frontend(x, window, args.frame_rate),
+                                     calls=KERNEL_CALLS)
+        out["plain_ms"][label] = median_ms(lambda: fe.frontend_plain(x, window, args.frame_rate),
+                                           calls=KERNEL_CALLS)
+        cfg = fe.kernel_config(window, fe.wire_kind(x, window))
+        bounds = frontend_bounds(x.shape[0], window, args.frame_rate,
+                                 x.shape[1] * x.element_size(), cfg.n_cols)
+        out["bound_ms"][label] = max(bounds["ops_ms"], bounds["bytes_ms"])
+        log("  kernel at the babble probe's launch shape %s: %.4f ms, plain %.4f ms; bound "
+            "%.4f ms (operations %.4f, bytes %.4f)"
+            % (label, out["ms"][label], out["plain_ms"][label], out["bound_ms"][label],
+               bounds["ops_ms"], bounds["bytes_ms"]))
+    # the same steps on the CPU
+    host = babble.train(args, torch.device("cpu"))
+    lr_sum = sum(babble.schedule(args, i) for i in range(BABBLE_STEPS))
+    what = "%d babble-probe steps, card vs CPU" % BABBLE_STEPS
+    out["card_vs_cpu_loss_rel"] = _losses_close(run.losses, host.losses, BABBLE_LOSS_REL, what)
+    out["card_vs_cpu_params"] = _params_close(nv.params_to_numpy(run.net),
+                                              nv.params_to_numpy(host.net), lr_sum,
+                                              TRAIN_PARAM_TOL, BABBLE_PARAM_SHARE, what)
+    return out
+
+
+def jitter_phase():
+    """Phase 13, the noisy-jitter probe in-process. Returns (launches, its
+    row, the kernel's errors against its plain version on the first staged
+    movie)."""
+    from ffsubsync_tpu_torch.scripts import probe_noisy_jitter as jitter
+
+    with Instruments() as ins:
+        report = jitter.sweep(list(JITTER_VADS), [JITTER_SEED], [JITTER_MINUTES], 12000)
+    (row,) = report["sweep"]
+    (want,) = [r for r in _artifact("EVAL_noisy_jitter.json")["sweep"]
+               if r["seed"] == JITTER_SEED and r["minutes"] == JITTER_MINUTES]
+    log("noisy-jitter probe, seed %d, %.0f min: cells %s; EVAL_noisy_jitter.json's row %s; "
+        "frontend launches %d for %d syncs, chunks dispatched %d"
+        % (JITTER_SEED, JITTER_MINUTES, json.dumps(row["cells"]), json.dumps(want["cells"]),
+           ins.launches, len(JITTER_VADS), len(ins.programs)))
+    for vad, cell in want["cells"].items():
+        if cell is not None and not isinstance(row["cells"].get(vad), int):
+            fail("noisy-jitter probe: %s gave %r where the artifact has %r"
+                 % (vad, row["cells"].get(vad), cell))
+    if ins.launches < len(JITTER_VADS) or ins.launches != len(ins.programs):
+        fail("noisy-jitter probe: %d frontend launches for %d dispatched chunks"
+             % (ins.launches, len(ins.programs)))
+    _on_card([ref for ref, _c, _o in ins.searches], "noisy-jitter probe")
+    return ins.launches, row, _first_input_vs_plain(ins, "the jitter probe's movie")
+
+
+def bias_phase():
+    """Phase 13, the webrtc-bias probe in a process of its own on the card.
+    Returns (launches, its errors per scenario)."""
+    import math
+
+    cmd = [sys.executable, "-m", "ffsubsync_tpu_torch.scripts.probe_webrtc_bias",
+           "--seeds", str(BIAS_SEED), "--minutes", "%g" % BIAS_MINUTES, "--platform", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail("webrtc-bias probe exited %d:\n%s" % (proc.returncode, proc.stderr[-3000:]))
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = [int(n) for n in re.findall(r"^frontend kernel launches: (\d+)$", proc.stderr, re.M)]
+    errs = report["by_minutes"]["%g" % BIAS_MINUTES]["per_seed"][str(BIAS_SEED)]
+    want = _artifact("EVAL_webrtc_bias.json")["by_minutes"]["%g" % BIAS_MINUTES]["per_seed"][
+        str(BIAS_SEED)]
+    log("webrtc-bias probe, seed %d, %.0f min (%.3f s wall, a process of its own): errors %s s; "
+        "EVAL_webrtc_bias.json's row %s s; frontend launches %s"
+        % (BIAS_SEED, BIAS_MINUTES, wall, json.dumps(errs), json.dumps(want), launches))
+    for name, err in want.items():
+        if err is not None and not (isinstance(errs.get(name), float)
+                                    and math.isfinite(errs[name])):
+            fail("webrtc-bias probe: %s gave %r where the artifact has %r"
+                 % (name, errs.get(name), err))
+    if len(launches) != 1 or launches[0] < len(want):
+        fail("webrtc-bias probe: frontend launches %r for %d syncs" % (launches, len(want)))
+    return launches[0], errs, wall
+
+
 def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
     """The ``--measure`` phases (see the module docstring)."""
     import numpy as np
@@ -1340,6 +1603,14 @@ def main():
         results["eval"] = eval_phase()
         results["agree"] = (results["eval"][3],)
         eval_errs = results["eval"][2]
+        pair = pair_phase(dev, spans)
+        results["pair"] = (pair["launches"],)
+        t13 = time.perf_counter()
+        babble = babble_phase(dev)
+        results["babble"] = (babble["launches"],)
+        results["jitter"] = jitter_phase()
+        results["bias"] = bias_phase()
+        log("phase 13 (the probes) took %.1f s" % (time.perf_counter() - t13))
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
         "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
@@ -1354,6 +1625,10 @@ def main():
         "held-out accuracy %.4f; eval card vs CPU worst accuracy difference %.4f"
         % (TRAIN_STEPS, train["wall"], train["step_ms"], train["synth_ms"], train["accuracy"],
            results["eval"][1]))
+    log("raw-signal alignment of %d-point pairs: card search %s ms; probes: babble %s, noisy "
+        "jitter cells %s, webrtc bias errors %s s"
+        % (pair["n"], json.dumps(pair["card_ms"]), json.dumps(babble["report"]),
+           json.dumps(results["jitter"][1]["cells"]), json.dumps(results["bias"][1])))
     kernels = {
         "kernels": [
             {
@@ -1368,7 +1643,9 @@ def main():
                                     auditok_errs["logmel"], multiseg_errs["logmel"],
                                     shard_errs["logmel"]]
                                    + [e["logmel"] for e in train["errs"].values()]
-                                   + [e["logmel"] for e in eval_errs.values()]),
+                                   + [e["logmel"] for e in eval_errs.values()]
+                                   + [e["logmel"] for e in babble["errs"].values()]
+                                   + [results["jitter"][2]["logmel"]]),
                 # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
                 "auditok_max_abs_err": auditok_errs,
@@ -1381,6 +1658,12 @@ def main():
                 # the adversarial eval's and the agreement harness's first
                 # staged inputs (phase 11)
                 "eval_max_abs_err": eval_errs,
+                # the babble probe's training and scoring launches, and the
+                # jitter probe's first staged movie (phase 13)
+                "babble_max_abs_err": babble["errs"],
+                "jitter_max_abs_err": results["jitter"][2],
+                "babble_plain_ms": babble["plain_ms"],
+                "babble_bound_ms": babble["bound_ms"],
                 "train_ms": train["ms"],
                 "train_plain_ms": train["plain_ms"],
                 # at the 45-minute chunk [270000, 120] int8 (CUDA events)
@@ -1397,17 +1680,20 @@ def main():
                 # torch.matmul float32 of the decoded frame by the [W, 2F]
                 # basis (cuBLAS; never called by the port)
                 "library_ms": chunk["library_ms"],
-                "ms_by_path": chunk["ms_by_path"],
+                "ms_by_path": dict(chunk["ms_by_path"], **{
+                    "babble " + shape: ms for shape, ms in babble["ms"].items()}),
                 "windows_by_path": PATH_WINDOWS,
                 "config": chunk["config"],
                 "ptxas": ptxas,
                 "spill_bytes": spills,
                 "sass_mma": sass_mma,
-                # launches of each path's own run (phases 4, 6-11; "sp" is
+                # launches of each path's own run (phases 4, 6-13; "sp" is
                 # one sharded call on 4 shards, "fused_sp_env" the CLI sync
                 # with FFS_TPU_SP_VAD=1, "train" the trainer's steps and
                 # held-out pass, "eval" the card's adversarial eval, "agree"
-                # the agreement harness's syncs)
+                # the agreement harness's syncs, "pair" the raw-signal
+                # searches (no kernel), "babble", "jitter" and "bias" the
+                # probes, the last summed over its harness's process)
                 "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]

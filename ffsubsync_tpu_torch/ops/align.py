@@ -270,8 +270,7 @@ def align_signal_pair(
     ref_pm = prepare_ref_pm(ref.astype(np.float32), n, device)
     sub_pm = prepare_ref_pm(sub.astype(np.float32), n, device)
     hi, cnt = _offset_window(n, len(sub), max_offset_samples)
-    n_offsets = n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
-    n_offsets = max(1, n_offsets)
+    n_offsets = max(1, n if max_offset_samples is None else min(2 * int(max_offset_samples), n))
     scores, offsets = align_device.align_signals(
         ref_pm,
         sub_pm[None, :],
