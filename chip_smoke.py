@@ -1431,7 +1431,7 @@ def bias_phase():
     import math
 
     cmd = [sys.executable, "-m", "ffsubsync_tpu_torch.scripts.probe_webrtc_bias",
-           "--seeds", str(BIAS_SEED), "--minutes", "%g" % BIAS_MINUTES, "--platform", "cuda"]
+           "--seeds", str(BIAS_SEED), "--minutes", "%g" % BIAS_MINUTES]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, timeout=600)
     wall = time.perf_counter() - t0

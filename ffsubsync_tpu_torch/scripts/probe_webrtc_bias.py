@@ -15,10 +15,10 @@ measurement (``EVAL_webrtc_bias.json`` holds the reference's).
 Usage: python -m ffsubsync_tpu_torch.scripts.probe_webrtc_bias
        [--seeds 1,2,3,4,5,6,7,8] [--minutes 3,10] [--scenarios music_bed,
        vocals_bed,strings_bed,laughter_breaks] [--out EVAL_webrtc_bias.json]
-       [--platform cuda|cpu]
 
-The frontend kernel's launches in the harness's processes are summed on
-standard error (``frontend kernel launches: N``).
+The harness's syncs run on the device ``FFS_TORCH_DEVICE`` names (``cuda``
+by default). The frontend kernel's launches in the harness's processes
+are summed on standard error (``frontend kernel launches: N``).
 """
 import argparse
 import json
@@ -45,8 +45,6 @@ def main(argv=None) -> int:
         default="music_bed,vocals_bed,strings_bed,laughter_breaks",
     )
     ap.add_argument("--out", default=None)
-    ap.add_argument("--platform", default=None, choices=("cuda", "cpu"),
-                    help="device of the harness's syncs (default: FFS_TORCH_DEVICE, else cuda)")
     args = ap.parse_args(argv)
     seeds = [int(s) for s in args.seeds.split(",")]
     minute_list = [float(m) for m in args.minutes.split(",")]
@@ -70,7 +68,7 @@ def main(argv=None) -> int:
                 "webrtc",
                 "--scenarios",
                 args.scenarios,
-            ] + (["--platform", args.platform] if args.platform else [])
+            ]
             proc = subprocess.run(cmd, capture_output=True, text=True, env=env)
             if proc.returncode:
                 log(proc.stderr[-4000:])

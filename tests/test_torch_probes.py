@@ -72,7 +72,9 @@ def _jax_main(script, argv, monkeypatch, capsys):
 
 
 def _port_main(module, argv, capsys):
-    assert module.main(argv + ["--platform", "cpu"]) == 0
+    """One port script's ``main`` (its device ``FFS_TORCH_DEVICE=cpu``);
+    its JSON line and standard error."""
+    assert module.main(argv) == 0
     captured = capsys.readouterr()
     return json.loads(captured.out.strip().splitlines()[-1]), captured.err
 
@@ -215,7 +217,7 @@ def test_noisy_jitter_probe_matches_reference(monkeypatch, capsys):
     cell (and the envelope) within one cell of the reference's."""
     argv = ["--seeds", "0", "--lengths", "1", "--vads", "fused"]
     want = _jax_main("probe_noisy_jitter.py", argv, monkeypatch, capsys)
-    got, _err = _port_main(tjitter, argv, capsys)
+    got, _err = _port_main(tjitter, argv + ["--platform", "cpu"], capsys)
     assert [r["seed"] for r in got["sweep"]] == [0]
     assert got["sweep"][0]["cells"]["fused"] is not None
     _same_report(got, want, _within_cells(CELL_TOL))
