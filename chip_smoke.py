@@ -174,9 +174,9 @@ BIAS_SEED, BIAS_MINUTES = 1, 3.0
 # parameters within TRAIN_PARAM_TOL on BABBLE_PARAM_SHARE of the entries
 # and within twice the summed learning rates on all. The trajectories part
 # a little more with each step (kernel against plain features, then Adam);
-# measured on one H100: losses 2e-5, 2e-5, 2.5e-3, 3.7e-3 and 5.3e-3
-# apart, 0.99845 of the parameters within 1e-4, the largest difference
-# 8.6e-4 of 5.2e-3
+# measured on one NVIDIA H100 80GB HBM3, 700.00 W: losses 2e-5, 2e-5,
+# 2.5e-3, 3.7e-3 and 5.3e-3 apart, 0.99845 of the parameters within 1e-4,
+# the largest difference 8.6e-4 of 5.2e-3
 BABBLE_LOSS_REL, BABBLE_PARAM_SHARE = 1e-2, 0.99
 HERE = os.path.dirname(os.path.abspath(__file__))
 
