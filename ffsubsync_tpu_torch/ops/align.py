@@ -57,6 +57,18 @@ def _offset_window(
     return hi, hi - lo + 1
 
 
+def search_window(
+    n: int, n_sub: int, max_offset_samples: Optional[int]
+) -> Tuple[int, int, int]:
+    """``(hi, cnt, n_offsets)`` of one candidate's search: its largest
+    allowed offset and their count (:func:`_offset_window`), and the
+    static number of offsets the device search gathers, ``n`` or
+    ``2 * max_offset_samples``, at least 1."""
+    hi, cnt = _offset_window(n, n_sub, max_offset_samples)
+    n_offsets = n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
+    return hi, cnt, max(1, n_offsets)
+
+
 RefLike = Union[RasterSpec, np.ndarray]
 
 
@@ -219,9 +231,9 @@ def pack_candidates(
             ends[i, j, : len(spec.ends)] = spec.ends
             weights[i, j] = spec.weight
             n_samples[i, j] = spec.n_samples
-            start_offs[i, j], cnts[i, j] = _offset_window(n, spec.n_samples, max_offset_samples)
-    n_offsets = n if max_offset_samples is None else min(2 * int(max_offset_samples), n)
-    return starts, ends, weights, n_samples, start_offs, cnts, max(1, n_offsets)
+            start_offs[i, j], cnts[i, j], _ = search_window(n, spec.n_samples, max_offset_samples)
+    n_offsets = search_window(n, 1, max_offset_samples)[2]
+    return starts, ends, weights, n_samples, start_offs, cnts, n_offsets
 
 
 def align_signal_pair(
@@ -232,10 +244,10 @@ def align_signal_pair(
     """Align two raw 0/1 signals (string or array form) — library parity shim.
 
     Accepts "10110"-style bitstrings like the reference's ``FFTAligner.fit``
-    (aligners.py:51-54). Runs on the host (numpy) unless
-    ``FFS_TPU_HOST_ALIGN=0`` sends the search to the device that
-    :func:`~ffsubsync_tpu_torch.device.get_device` names — these are
-    host-sized 100 Hz signals.
+    (aligners.py:51-54). The search runs on the device that
+    :func:`~ffsubsync_tpu_torch.device.get_device` names (the card, or the
+    CPU under ``FFS_TORCH_DEVICE=cpu``); ``FFS_TPU_HOST_ALIGN=1`` runs it in
+    numpy on the host instead, as the JAX package does by default.
     """
     def _to_array(s):
         if isinstance(s, str):
@@ -252,13 +264,13 @@ def align_signal_pair(
             % (len(ref), len(sub))
         )
     n = next_pow2(len(ref) + len(sub))
-    if _resolve_host_align(True):
+    hi, cnt, n_offsets = search_window(n, len(sub), max_offset_samples)
+    if _resolve_host_align(False):
         ref_pm = _host_pm(ref, n)
         sub_pm = _host_pm(sub, n)
         c2 = np.fft.irfft(
             np.conj(np.fft.rfft(sub_pm)) * np.fft.rfft(ref_pm), n=n
         )
-        hi, cnt = _offset_window(n, len(sub), max_offset_samples)
         offs = hi - np.arange(max(cnt, 1))
         best_off = int(offs[int(np.argmax(c2[np.mod(offs, n)]))])
         score = float(np.dot(sub_pm, np.roll(ref_pm, -best_off)))
@@ -269,8 +281,6 @@ def align_signal_pair(
     device = get_device()
     ref_pm = prepare_ref_pm(ref.astype(np.float32), n, device)
     sub_pm = prepare_ref_pm(sub.astype(np.float32), n, device)
-    hi, cnt = _offset_window(n, len(sub), max_offset_samples)
-    n_offsets = max(1, n if max_offset_samples is None else min(2 * int(max_offset_samples), n))
     scores, offsets = align_device.align_signals(
         ref_pm,
         sub_pm[None, :],

@@ -2,9 +2,10 @@
 """The port's raw-signal alignment (``ops.align.align_signal_pair``,
 ``prepare_ref_pm`` and ``ops.align_device.align_signals``) against the JAX
 package's: the cases of tests/test_alignment.py run through both packages
-on both branches, the host one (numpy, the default) and the device one
-(``FFS_TPU_HOST_ALIGN=0``: the port on the CPU through
-``FFS_TORCH_DEVICE=cpu``, the JAX package on CPU JAX)."""
+on both branches, the host one (numpy under ``FFS_TPU_HOST_ALIGN=1``, the
+JAX package's default) and the device one (``FFS_TPU_HOST_ALIGN=0``, the
+port's default: the port on the CPU through ``FFS_TORCH_DEVICE=cpu``, the
+JAX package on CPU JAX)."""
 import dataclasses
 
 import numpy as np
@@ -43,7 +44,7 @@ def branch(request, monkeypatch):
 
         monkeypatch.setattr(tdevice, "align_signals", counted)
     else:
-        monkeypatch.delenv("FFS_TPU_HOST_ALIGN", raising=False)
+        monkeypatch.setenv("FFS_TPU_HOST_ALIGN", "1")
     yield request.param
     if request.param == "device" and not request.node.name.startswith("test_rejects_empty"):
         assert calls and set(calls) == {torch.device("cpu")}, calls
@@ -173,11 +174,32 @@ def test_device_branch_without_a_card_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     monkeypatch.setenv("FFS_TORCH_DEVICE", "cuda")
-    monkeypatch.setenv("FFS_TPU_HOST_ALIGN", "0")
+    monkeypatch.delenv("FFS_TPU_HOST_ALIGN", raising=False)  # the default: the device
     with pytest.raises(RuntimeError, match="FFS_TORCH_DEVICE=cuda"):
         talign.align_signal_pair("10110", "0110")
-    monkeypatch.delenv("FFS_TPU_HOST_ALIGN")
+    monkeypatch.setenv("FFS_TPU_HOST_ALIGN", "1")
     assert talign.align_signal_pair("10110", "0110").offset == 1  # the host branch
+
+
+@pytest.mark.parametrize("max_offset", [None, 200])
+def test_default_is_the_device_branch(monkeypatch, max_offset):
+    """Without ``FFS_TPU_HOST_ALIGN`` the port searches on the device
+    ``get_device`` names (the CPU here), where the JAX package stays on the
+    host; both find the same alignment."""
+    monkeypatch.setenv("FFS_TORCH_DEVICE", "cpu")
+    monkeypatch.delenv("FFS_TPU_HOST_ALIGN", raising=False)
+    calls, real = [], tdevice.align_signals
+
+    def counted(ref_pm, *args):
+        calls.append(ref_pm.device)
+        return real(ref_pm, *args)
+
+    monkeypatch.setattr(tdevice, "align_signals", counted)
+    rng = np.random.RandomState(6)
+    ref = (rng.rand(1000) > 0.7).astype(float)
+    sub = _shifted(ref, -57, 900)
+    assert _pair(ref, sub, max_offset).offset == -57
+    assert calls == [torch.device("cpu")]
 
 
 @pytest.mark.parametrize("max_offset", [None, 300, 0], ids=["all", "max300", "max0"])
@@ -195,10 +217,10 @@ def test_align_signals_equals_reference_kernel(max_offset):
     subs_pm = np.zeros((3, n), np.float32)
     for i, s in enumerate(subs):
         subs_pm[i, : len(s)] = 2 * s - 1
-    windows = [talign._offset_window(n, m, max_offset) for m in lengths]
+    windows = [talign.search_window(n, m, max_offset) for m in lengths]
     start_offs = np.array([w[0] for w in windows])
     cnts = np.array([w[1] for w in windows])
-    n_offsets = max(1, n if max_offset is None else min(2 * max_offset, n))
+    (n_offsets,) = {w[2] for w in windows}
     want_scores, want_offs = jdevice._align_signals_kernel(
         jnp.asarray(ref_pm), jnp.asarray(subs_pm), jnp.asarray(start_offs, jnp.int32),
         jnp.asarray(cnts, jnp.int32), n, n_offsets)

@@ -72,9 +72,8 @@ with tempfile.TemporaryDirectory() as d:
 accuracy = eval_neural_vad.evaluate(["fused"], 1, 3.0, 12000, 0, conditions=["clipped"])
 assert 0.0 <= accuracy["clipped"]["fused"] <= 1.0
 from ffsubsync_tpu_torch.ops.align import align_signal_pair
-os.environ["FFS_TPU_HOST_ALIGN"] = "0"  # the device branch, on FFS_TORCH_DEVICE
+os.environ.pop("FFS_TPU_HOST_ALIGN", None)  # the default: the device branch, on FFS_TORCH_DEVICE
 assert align_signal_pair("11001", "111001").offset == -1
-del os.environ["FFS_TPU_HOST_ALIGN"]
 import torch
 from ffsubsync_tpu_torch.scripts import probe_babble_ceiling
 probe = probe_babble_ceiling.train(probe_babble_ceiling.make_parser().parse_args(
