@@ -78,8 +78,9 @@ needs no network and no jax. Phases, each fatal on failure:
 12. raw-signal alignment (``ops.align.align_signal_pair``): a 90-minute
     pair of 0/1 signals at 100 Hz (540,000 samples each, the reference from
     the synthetic movie's spans, the subtitle side that signal shifted by a
-    known offset), with ``max_offset_samples`` None and 6000, under
-    ``FFS_TPU_HOST_ALIGN=0``: the search must run on the card
+    known offset), with ``max_offset_samples`` None and 6000, by default
+    (the host branch under ``FFS_TPU_HOST_ALIGN=1`` beside it): the search
+    must run on the card
     (``align_device.align_signals`` on CUDA tensors), find the offset of
     the host branch (or one whose exact score ties it) and its score within
     1e-4 relative; the search's card milliseconds are timed;
@@ -178,6 +179,10 @@ BIAS_SEED, BIAS_MINUTES = 1, 3.0
 # 2.5e-3, 3.7e-3 and 5.3e-3 apart, 0.99845 of the parameters within 1e-4,
 # the largest difference 8.6e-4 of 5.2e-3
 BABBLE_LOSS_REL, BABBLE_PARAM_SHARE = 1e-2, 0.99
+# the planted fault both checks must reject: the same steps on the card with
+# this step's update reversed (the 0-based step index; the first steps'
+# rates are 0 under the warm-up)
+BABBLE_FAULT_STEP = 3
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -308,6 +313,28 @@ def kernel_vs_plain(dev):
     log("kernel vs plain: all tiers and wires within tolerance; worst "
         + ", ".join("%s %.3g" % kv for kv in worst.items()))
     return worst
+
+
+def host_ms(fn, n=15, warm=3, calls=1):
+    """Median host milliseconds per call of issuing ``fn()``, ``calls``
+    calls back to back with no wait on the card between them (the host's
+    clock; the card is synchronized after each sample). Beside
+    :func:`median_ms` it says whether the card or the host sets a short
+    kernel's time."""
+    import numpy as np
+    import torch
+
+    for _ in range(warm):
+        fn()
+    samples = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return float(np.median(samples))
 
 
 def median_ms(fn, n=15, warm=3, calls=1):
@@ -999,29 +1026,44 @@ def labels_card_vs_cpu(pcm):
     return agree
 
 
-def _params_close(got, want, lr_sum, tol, share, what):
-    """Parameters (JAX layout) within ``tol`` on ``share`` of the entries
-    and within twice ``lr_sum`` on all; fails outside. Returns (share
-    within ``tol``, largest difference)."""
+def _params_gap(got, want, lr_sum, tol, share, what):
+    """Parameters (JAX layout): (the share within ``tol``, the largest
+    difference, whether both bounds hold: ``tol`` on ``share`` of the
+    entries and twice ``lr_sum`` on all)."""
     import numpy as np
 
     diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
     within, worst = float(np.mean(diffs <= tol)), float(diffs.max())
     log("  %s: %.6f of %d parameters within %g, max |d| %.3g (2 x summed lr %.3g)"
         % (what, within, len(diffs), tol, worst, 2 * lr_sum))
-    if within < share or worst > 2 * lr_sum or not np.isfinite(diffs).all():
+    return within, worst, (within >= share and worst <= 2 * lr_sum
+                           and bool(np.isfinite(diffs).all()))
+
+
+def _params_close(got, want, lr_sum, tol, share, what):
+    """:func:`_params_gap`, failing outside the bounds. Returns (share
+    within ``tol``, largest difference)."""
+    within, worst, ok = _params_gap(got, want, lr_sum, tol, share, what)
+    if not ok:
         fail("%s: parameters outside the bounds" % what)
     return within, worst
 
 
-def _losses_close(got, want, rel, what):
+def _losses_gap(got, want, what):
+    """The worst relative difference of two loss trajectories (inf where
+    ``got`` is not finite)."""
     import numpy as np
 
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     worst = float(np.max(np.abs(got - want) / np.abs(want)))
     log("  %s: losses %s against %s, worst relative difference %.3g"
         % (what, got.tolist(), want.tolist(), worst))
-    if not np.isfinite(got).all() or worst > rel:
+    return worst if np.isfinite(got).all() else float("inf")
+
+
+def _losses_close(got, want, rel, what):
+    worst = _losses_gap(got, want, what)
+    if worst > rel:
         fail("%s: losses differ by %.3g relative (bound %g)" % (what, worst, rel))
     return worst
 
@@ -1039,7 +1081,7 @@ def train_phase(dev, pcm):
     from ffsubsync_tpu_torch.parallel.batch import adam, make_vad_train_step
     from ffsubsync_tpu_torch.scripts import train_neural_vad as tr
 
-    out = {"errs": {}, "ms": {}, "plain_ms": {}}
+    out = {"errs": {}, "ms": {}, "plain_ms": {}, "host_ms": {}}
     # (a) the kernel against its plain version at each launch shape
     for rate, clips, seed in TRAIN_SHAPES:
         window = rate // SAMPLE_RATE
@@ -1056,8 +1098,11 @@ def train_phase(dev, pcm):
                                      calls=KERNEL_CALLS)
         out["plain_ms"][label] = median_ms(lambda: fe.frontend_plain(x, window, rate),
                                            calls=KERNEL_CALLS)
-        log("  kernel at the trainer's launch shape %s: %.4f ms, plain %.4f ms"
-            % (label, out["ms"][label], out["plain_ms"][label]))
+        out["host_ms"][label] = host_ms(lambda: fe.fused_frontend(x, window, rate),
+                                        calls=KERNEL_CALLS)
+        log("  kernel at the trainer's launch shape %s: %.4f ms, plain %.4f ms; the host "
+            "issues a kernel call in %.4f ms" % (label, out["ms"][label],
+                                                 out["plain_ms"][label], out["host_ms"][label]))
 
     # (b) three steps of the script's optimizer, card against CPU
     args = tr.make_parser().parse_args(["--frame-rate", "12000", "--steps", str(TRAIN_LR_STEPS)])
@@ -1252,13 +1297,14 @@ def pair_phase(dev, spans):
         return real(ref_pm, *args)
 
     out = {"n": n, "launches": 0, "card_ms": {}, "call_s": {}, "host_s": {}}
-    saved = os.environ.pop("FFS_TPU_HOST_ALIGN", None)
+    saved = os.environ.get("FFS_TPU_HOST_ALIGN")
     try:
         for max_off in PAIR_MAX_OFFSETS:
+            os.environ["FFS_TPU_HOST_ALIGN"] = "1"
             t0 = time.perf_counter()
-            host = align.align_signal_pair(ref, sub, max_off)  # the default: host
+            host = align.align_signal_pair(ref, sub, max_off)
             host_s = time.perf_counter() - t0
-            os.environ["FFS_TPU_HOST_ALIGN"] = "0"
+            del os.environ["FFS_TPU_HOST_ALIGN"]  # the default: the card
             align_device.align_signals = recorded
             del devices[:]
             fe.fused_frontend.launches = 0
@@ -1270,7 +1316,6 @@ def pair_phase(dev, spans):
                 call_s = time.perf_counter() - t0
             finally:
                 align_device.align_signals = real
-                del os.environ["FFS_TPU_HOST_ALIGN"]
             out["launches"] += fe.fused_frontend.launches
             what = "align_signal_pair of %d samples, max_offset_samples %s" % (n_samples, max_off)
             if [d.type for d in devices] != [dev.type]:
@@ -1292,8 +1337,7 @@ def pair_phase(dev, spans):
             # the search alone on resident inputs (CUDA events)
             ref_pm = align.prepare_ref_pm(ref.astype(np.float32), n, dev)
             sub_pm = align.prepare_ref_pm(sub.astype(np.float32), n, dev)[None]
-            hi, cnt = align._offset_window(n, n_samples, max_off)
-            n_offsets = max(1, n if max_off is None else min(2 * max_off, n))
+            hi, cnt, n_offsets = align.search_window(n, n_samples, max_off)
             bounds = (torch.tensor([hi], device=dev), torch.tensor([cnt], device=dev))
             ms = median_ms(lambda: real(ref_pm, sub_pm, *bounds, n, n_offsets), n=10, warm=2,
                            calls=3)
@@ -1306,6 +1350,7 @@ def pair_phase(dev, spans):
                 % (what, host.offset, host.score, host_s, card.offset, tie, card.score, rel, ms, n,
                    call_s))
     finally:
+        os.environ.pop("FFS_TPU_HOST_ALIGN", None)
         if saved is not None:
             os.environ["FFS_TPU_HOST_ALIGN"] = saved
     if out["launches"]:
@@ -1365,8 +1410,8 @@ def babble_phase(dev):
     if (sorted(report) != sorted(babble.CONDITIONS) or not np.isfinite(run.losses).all()
             or not all(0.0 <= v <= 1.0 for v in values)):
         fail("babble probe: losses %r, report %r" % (run.losses, report))
-    out = {"errs": {}, "ms": {}, "plain_ms": {}, "bound_ms": {}, "launches": launches,
-           "wall": wall, "report": report}
+    out = {"errs": {}, "ms": {}, "plain_ms": {}, "bound_ms": {}, "host_ms": {},
+           "launches": launches, "wall": wall, "report": report}
     if len(first) != 2:
         fail("babble probe: feature inputs of shapes %r" % sorted(first))
     for shape, pcm16 in first.items():
@@ -1384,10 +1429,12 @@ def babble_phase(dev):
         bounds = frontend_bounds(x.shape[0], window, args.frame_rate,
                                  x.shape[1] * x.element_size(), cfg.n_cols)
         out["bound_ms"][label] = max(bounds["ops_ms"], bounds["bytes_ms"])
+        out["host_ms"][label] = host_ms(lambda: fe.fused_frontend(x, window, args.frame_rate),
+                                        calls=KERNEL_CALLS)
         log("  kernel at the babble probe's launch shape %s: %.4f ms, plain %.4f ms; bound "
-            "%.4f ms (operations %.4f, bytes %.4f)"
+            "%.4f ms (operations %.4f, bytes %.4f); the host issues a kernel call in %.4f ms"
             % (label, out["ms"][label], out["plain_ms"][label], out["bound_ms"][label],
-               bounds["ops_ms"], bounds["bytes_ms"]))
+               bounds["ops_ms"], bounds["bytes_ms"], out["host_ms"][label]))
     # the same steps on the CPU
     host = babble.train(args, torch.device("cpu"))
     lr_sum = sum(babble.schedule(args, i) for i in range(BABBLE_STEPS))
@@ -1396,6 +1443,25 @@ def babble_phase(dev):
     out["card_vs_cpu_params"] = _params_close(nv.params_to_numpy(run.net),
                                               nv.params_to_numpy(host.net), lr_sum,
                                               TRAIN_PARAM_TOL, BABBLE_PARAM_SHARE, what)
+    # a planted fault: the same steps on the card with one update taken the
+    # wrong way (Adam's update is odd in its rate), which both checks must
+    # reject
+    schedule = babble.schedule
+    babble.schedule = lambda a, i: (-1 if i == BABBLE_FAULT_STEP else 1) * schedule(a, i)
+    try:
+        fault = babble.train(args, dev)
+    finally:
+        babble.schedule = schedule
+    what = "%d babble-probe steps with step %d's update reversed, card vs CPU" % (
+        BABBLE_STEPS, BABBLE_FAULT_STEP)
+    loss_rel = _losses_gap(fault.losses, host.losses, what)
+    within, worst, params_pass = _params_gap(
+        nv.params_to_numpy(fault.net), nv.params_to_numpy(host.net), lr_sum, TRAIN_PARAM_TOL,
+        BABBLE_PARAM_SHARE, what)
+    out["fault_loss_rel"], out["fault_params"] = loss_rel, (within, worst)
+    if loss_rel <= BABBLE_LOSS_REL or params_pass:
+        fail("%s: the checks pass it (losses %.3g relative, bound %g; parameters %s)"
+             % (what, loss_rel, BABBLE_LOSS_REL, "pass" if params_pass else "fail"))
     return out
 
 
@@ -1664,7 +1730,9 @@ def main():
                 "jitter_max_abs_err": results["jitter"][2],
                 "babble_plain_ms": babble["plain_ms"],
                 "babble_bound_ms": babble["bound_ms"],
+                "babble_host_ms": babble["host_ms"],
                 "train_ms": train["ms"],
+                "train_host_ms": train["host_ms"],
                 "train_plain_ms": train["plain_ms"],
                 # at the 45-minute chunk [270000, 120] int8 (CUDA events)
                 "ms": chunk["ms"],
