@@ -93,7 +93,20 @@ needs no network and no jax. Phases, each fatal on failure:
     the webrtc-bias probe (seed 1, 3 minutes, all four music scenarios) as
     a process of its own, each printed beside the committed artifact's row
     (``EVAL_noisy_jitter.json``, ``EVAL_webrtc_bias.json``; offsets from the
-    synthetic truth, not speeds).
+    synthetic truth, not speeds);
+14. the port's benchmark scripts, each as a user runs it (``python -m
+    ffsubsync_tpu_torch.scripts.bench``, ``.bench_batch``,
+    ``.bench_suite``) in a process of its own at full size with the depth
+    cut (``BENCH_SCRIPTS``): each line must hold the reference's keys
+    (``BENCH_*_r05.json``) plus ``platform`` ``cuda`` and ``device``
+    (phase 1's ``nvidia-smi`` line), finite times, the frontend launches
+    its knobs imply, bench's offsets within 10 ms, the batch's offsets
+    exact and every suite case within 0.15 s (printed beside
+    ``BENCH_SUITE_r05.json``'s; wav5_energy's auditok labels leave an
+    exact-tie plateau, so its case is rebuilt in-process and a pick beyond
+    0.15 s passes only where it scores exactly what the truth does); the kernel held against its plain version
+    at the suite's one new launch shape, wav5_energy's whole 5-minute
+    signal ``[30000, 120]``, and timed beside its bound.
 
 Every path is driven with the kernel's launch count set to 0 just before
 and read just after. The last three lines of standard output are one JSON
@@ -186,6 +199,25 @@ BABBLE_LOSS_REL, BABBLE_PARAM_SHARE = 1e-2, 0.99
 # run's 5.3e-3; bound 1e-2), 0.103 of its parameters within 1e-4 (the sound
 # run's 0.99845; bound 0.99)
 BABBLE_FAULT_STEP = 3
+# phase 14: the port's benchmark scripts at full size, depth cut: (module,
+# knobs, the frontend launches they imply). bench: 2 pipeline chunks per
+# 90-min sync x (warm-up + BENCH_RUNS timed + attributed + BENCH_VAD_RUNS
+# VAD-only) + 2 CLI syncs x 2 chunks = 14; bench_batch's references are
+# 0/1 signals (no kernel); bench_suite: srt_srt none, wav5_energy one
+# launch over the whole signal per run, multiseg one per segment = 0 + 1 + 8
+BENCH_SCRIPTS = (
+    ("bench", {"BENCH_RUNS": "2", "BENCH_MAX_RUNS": "2", "BENCH_VAD_RUNS": "1"},
+     2 * (1 + 2 + 1 + 1) + 2 * 2),
+    ("bench_batch", {"BENCH_RUNS": "2"}, 0),
+    ("bench_suite", {"BENCH_RUNS": "1"}, 0 + 1 + 8),
+)
+BENCH_ARTIFACTS = {"bench": "BENCH_r05.json", "bench_batch": "BENCH_BATCH_r05.json",
+                   "bench_suite": "BENCH_SUITE_r05.json"}
+# bench's offsets within one 100 Hz window (phase 4 recovers the same 7.34 s
+# shift exactly); the suite's within the reference's audio tests' bar (its
+# wav5_energy carries auditok's 80 ms onset bias, ROADMAP C1)
+BENCH_OFFSET_MS, SUITE_OFFSET_MS = 10.0, 150.0
+WAV5_WINDOWS = 5 * 60 * SAMPLE_RATE
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1524,6 +1556,150 @@ def bias_phase():
     return launches[0], errs, wall
 
 
+def _bench_schema(script):
+    """The keys the port's ``script`` must print: those of the reference's
+    recorded line (``BENCH_*_r05.json``), ``platform`` where it had none,
+    and ``device``."""
+    with open(os.path.join(HERE, BENCH_ARTIFACTS[script])) as f:
+        line = json.load(f)
+    line = line.get("parsed", line)
+    return set(line) | {"platform", "device"}, line
+
+
+def _finite_times(line, what):
+    """Every wall time of a bench line (``value`` and each ``*_s``, nested
+    ones too) must be a finite number."""
+    import math
+
+    for key, value in line.items():
+        if isinstance(value, dict):
+            _finite_times(value, "%s %s" % (what, key))
+        elif key == "value" or key.endswith("_s"):
+            if not (isinstance(value, (int, float)) and math.isfinite(value)):
+                fail("%s: %s is %r" % (what, key, value))
+
+
+def bench_script(script, knobs, want_launches, smi):
+    """Phase 14, one benchmark script as a user runs it, in a process of
+    its own on the card. Returns (launches, its JSON line, wall s)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(knobs)
+    cmd = [sys.executable, "-m", "ffsubsync_tpu_torch.scripts." + script]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail("%s exited %d:\n%s" % (script, proc.returncode, proc.stderr[-3000:]))
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("%s (%s; %.1f s, a process of its own): %s"
+        % (script, " ".join("%s=%s" % kv for kv in knobs.items()), wall, json.dumps(line)))
+    keys, reference = _bench_schema(script)
+    if set(line) != keys:
+        fail("%s: keys %s, want %s" % (script, sorted(line), sorted(keys)))
+    for case in ("breakdown", "srt_srt", "wav5_energy", "multiseg"):
+        if case in reference and set(line[case] or ()) != set(reference[case]):
+            fail("%s: %s keys %r, want %s" % (script, case, line[case], sorted(reference[case])))
+    if line["platform"] != "cuda" or line["device"] != smi:
+        fail("%s: platform %r on %r, want cuda on %r"
+             % (script, line["platform"], line["device"], smi))
+    _finite_times(line, script)
+    launches = [int(n) for n in re.findall(r"^frontend kernel launches: (\d+)$", proc.stderr, re.M)]
+    if launches != [want_launches]:
+        fail("%s: frontend launches %r, the knobs imply %d" % (script, launches, want_launches))
+    return launches[0], line, wall
+
+
+def wav5_plateau(err_ms):
+    """bench_suite's wav5_energy case rebuilt here from its ``RandomState(0)``
+    draws (srt_srt's come first) and synced once in-process on the card.
+    auditok's hard labels leave exact-tie plateaus in the search, whose pick
+    float32 FFT rounding decides (ROADMAP C4). Returns (the plateau of
+    offsets scoring exactly what the truth scores, in seconds, and whether
+    the script's pick, ``err_ms`` from the truth, lies on it)."""
+    import numpy as np
+
+    from ffsubsync_tpu_torch.scripts import bench_suite as suite
+
+    truth = int(round(suite.TRUE_OFFSET * SAMPLE_RATE))
+    rng = np.random.RandomState(0)
+    suite._spans(rng, 45 * 60.0)
+    with tempfile.TemporaryDirectory(prefix="ffs_wav5_") as tmp, Instruments() as ins:
+        suite.wav5_energy(rng, tmp, 1)
+    spec, alignment = _pick(ins.searches[0])
+    labels = np.asarray(ins.searches[0][0])
+    # sync's first candidate is the ratio 1.0, whose offsets are the truth's
+    if ins.launches != 1 or spec is not ins.searches[0][1][0]:
+        fail("wav5_energy in-process: %d launches, or a candidate other than ratio 1.0 won"
+             % ins.launches)
+    scores = {off: _exact_score(labels, spec, off) for off in range(truth - 100, truth + 101)}
+
+    def tied(off):
+        return scores.get(off) == scores[truth]
+
+    lo = hi = truth
+    while tied(lo - 1):
+        lo -= 1
+    while tied(hi + 1):
+        hi += 1
+    shift = None if err_ms is None else int(round(err_ms * SAMPLE_RATE / 1000.0))
+    on_it = shift is not None and (lo <= truth + shift <= hi or lo <= truth - shift <= hi)
+    log("  wav5_energy rebuilt in-process: pick %.2f s (exact score %.1f), the truth %.2f s "
+        "(%.1f), its exact-tie plateau %.2f-%.2f s; the script's pick (%r ms off) on it: %s"
+        % (alignment.offset / SAMPLE_RATE, scores.get(alignment.offset, float("nan")),
+           truth / SAMPLE_RATE, scores[truth], lo / SAMPLE_RATE, hi / SAMPLE_RATE, err_ms, on_it))
+    return (lo / SAMPLE_RATE, hi / SAMPLE_RATE), on_it
+
+
+def bench_phase(dev, pcm, smi):
+    """Phase 14. Returns a dict of what it measured."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops import frontend as fe
+
+    torch.cuda.empty_cache()  # the scripts' processes share the card
+    out = {"launches": {}, "lines": {}, "walls": {}}
+    for script, knobs, want in BENCH_SCRIPTS:
+        out["launches"][script], line, out["walls"][script] = bench_script(
+            script, knobs, want, smi)
+        out["lines"][script] = line
+    bench, batch, suite = (out["lines"][s] for s, _k, _w in BENCH_SCRIPTS)
+    for key in ("offset_err_ms", "e2e_offset_err_ms"):
+        if bench[key] is None or bench[key] > BENCH_OFFSET_MS:
+            fail("bench: %s %r, bound %g ms" % (key, bench[key], BENCH_OFFSET_MS))
+    if batch["offsets_exact"] is not True:
+        fail("bench_batch: offsets not exact")
+    reference = _bench_schema("bench_suite")[1]
+    out["wav5_plateau"], tied = wav5_plateau(suite["wav5_energy"]["offset_err_ms"])
+    for case in ("srt_srt", "wav5_energy", "multiseg"):
+        err = suite[case]["offset_err_ms"]
+        log("  bench_suite %s: offset error %r ms; BENCH_SUITE_r05.json's %r ms"
+            % (case, err, reference[case]["offset_err_ms"]))
+        # beyond the bar, wav5_energy's pick passes only as an exact tie
+        # with the truth
+        if err is None or (err > SUITE_OFFSET_MS and not (case == "wav5_energy" and tied)):
+            fail("bench_suite %s: offset error %r ms, bound %g ms" % (case, err, SUITE_OFFSET_MS))
+    # the suite's one new launch shape: wav5_energy's auditok detector
+    # stages the whole 5-minute 12 kHz signal
+    x = _staged(pcm, WAV5_WINDOWS)
+    window = RATE // SAMPLE_RATE
+    got = fe.fused_frontend(x, window, RATE)
+    torch.cuda.synchronize()
+    label = _shape(x)
+    out["errs"] = compare(got, fe.frontend_plain(x, window, RATE), "5-min auditok signal " + label)
+    out["shape"] = label
+    out["ms"] = median_ms(lambda: fe.fused_frontend(x, window, RATE), calls=KERNEL_CALLS)
+    out["plain_ms"] = median_ms(lambda: fe.frontend_plain(x, window, RATE), calls=KERNEL_CALLS)
+    out["host_ms"] = host_ms(lambda: fe.fused_frontend(x, window, RATE), calls=KERNEL_CALLS)
+    cfg = fe.kernel_config(window, fe.wire_kind(x, window))
+    bounds = frontend_bounds(x.shape[0], window, RATE, x.shape[1] * x.element_size(), cfg.n_cols)
+    out["bound_ms"] = max(bounds["ops_ms"], bounds["bytes_ms"])
+    log("  kernel at bench_suite wav5_energy's launch shape %s: %.4f ms, plain %.4f ms; bound "
+        "%.4f ms (operations %.4f, bytes %.4f); the host issues a kernel call in %.4f ms"
+        % (label, out["ms"], out["plain_ms"], out["bound_ms"], bounds["ops_ms"],
+           bounds["bytes_ms"], out["host_ms"]))
+    return out
+
+
 def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
     """The ``--measure`` phases (see the module docstring)."""
     import numpy as np
@@ -1680,6 +1856,11 @@ def main():
         results["jitter"] = jitter_phase()
         results["bias"] = bias_phase()
         log("phase 13 (the probes) took %.1f s" % (time.perf_counter() - t13))
+        t14 = time.perf_counter()
+        benches = bench_phase(dev, pcm, smi)
+        for script, launches in benches["launches"].items():
+            results[script] = (launches,)
+        log("phase 14 (the benchmark scripts) took %.1f s" % (time.perf_counter() - t14))
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
         "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
@@ -1707,14 +1888,14 @@ def main():
                 "replaces": "ffsubsync_tpu/ops/pallas/frontend.py:225",
                 "launches": results["fused"][0],
                 # worst log-mel abs error over every comparison (phases 3, 6,
-                # 7, 9, 10 and 11)
+                # 7, 9, 10, 11, 13 and 14)
                 "max_abs_err": max([worst["logmel"], chunk_errs["logmel"],
                                     auditok_errs["logmel"], multiseg_errs["logmel"],
                                     shard_errs["logmel"]]
                                    + [e["logmel"] for e in train["errs"].values()]
                                    + [e["logmel"] for e in eval_errs.values()]
                                    + [e["logmel"] for e in babble["errs"].values()]
-                                   + [results["jitter"][2]["logmel"]]),
+                                   + [results["jitter"][2]["logmel"], benches["errs"]["logmel"]]),
                 # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
                 "auditok_max_abs_err": auditok_errs,
@@ -1731,6 +1912,11 @@ def main():
                 # jitter probe's first staged movie (phase 13)
                 "babble_max_abs_err": babble["errs"],
                 "jitter_max_abs_err": results["jitter"][2],
+                # bench_suite wav5_energy's whole 5-min signal (phase 14)
+                "wav5_max_abs_err": benches["errs"],
+                "wav5_plain_ms": benches["plain_ms"],
+                "wav5_bound_ms": benches["bound_ms"],
+                "wav5_host_ms": benches["host_ms"],
                 "babble_plain_ms": babble["plain_ms"],
                 "babble_bound_ms": babble["bound_ms"],
                 "babble_host_ms": babble["host_ms"],
@@ -1752,19 +1938,22 @@ def main():
                 # basis (cuBLAS; never called by the port)
                 "library_ms": chunk["library_ms"],
                 "ms_by_path": dict(chunk["ms_by_path"], **{
-                    "babble " + shape: ms for shape, ms in babble["ms"].items()}),
+                    "babble " + shape: ms for shape, ms in babble["ms"].items()},
+                    **{"wav5 " + benches["shape"]: benches["ms"]}),
                 "windows_by_path": PATH_WINDOWS,
                 "config": chunk["config"],
                 "ptxas": ptxas,
                 "spill_bytes": spills,
                 "sass_mma": sass_mma,
-                # launches of each path's own run (phases 4, 6-13; "sp" is
+                # launches of each path's own run (phases 4, 6-14; "sp" is
                 # one sharded call on 4 shards, "fused_sp_env" the CLI sync
                 # with FFS_TPU_SP_VAD=1, "train" the trainer's steps and
                 # held-out pass, "eval" the card's adversarial eval, "agree"
                 # the agreement harness's syncs, "pair" the raw-signal
                 # searches (no kernel), "babble", "jitter" and "bias" the
-                # probes, the last summed over its harness's process)
+                # probes, the last summed over its harness's process;
+                # "bench", "bench_batch" and "bench_suite" the benchmark
+                # scripts, each over its own process)
                 "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]

@@ -80,6 +80,11 @@ probe = probe_babble_ceiling.train(probe_babble_ceiling.make_parser().parse_args
     ["--steps", "2", "--batch", "1", "--clip-seconds", "1"]), torch.device("cpu"))
 assert len(probe.losses) == 2 and np.isfinite(probe.losses).all()
 import ffsubsync_tpu_torch.gui
+from ffsubsync_tpu_torch.scripts import bench, bench_batch, bench_suite
+os.environ.update(BENCH_PLATFORM="cpu", BENCH_MINUTES="1", BENCH_RUNS="1", BENCH_MAX_RUNS="1",
+                  BENCH_VAD_RUNS="1", BENCH_EPISODES="2")
+assert bench.main() == 0 and bench_batch.main() == 0
+assert bench_suite.main(1.0, 1.0, 2.0, 2) == 0
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and m.split(".")[0] in ("jax", "optax", "ffsubsync_tpu")]
 assert not loaded, loaded
@@ -90,9 +95,10 @@ print("NO_JAX_SYNC_OK", result["offset_seconds"])
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
     """The fused, auditok, multi-segment and batch syncs of a WAV, the
     sharded VAD, two training steps, one eval condition, the device branch
-    of ``align_signal_pair``, two babble-probe steps and the GUI module,
-    with jax, optax and the JAX package made unimportable and the fixtures
-    taken from the port; no module of any of them loads."""
+    of ``align_signal_pair``, two babble-probe steps, the GUI module and
+    the three benchmark scripts at their smallest, with jax, optax and the
+    JAX package made unimportable and the fixtures taken from the port; no
+    module of any of them loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run(
