@@ -106,7 +106,18 @@ needs no network and no jax. Phases, each fatal on failure:
     exact-tie plateau, so its case is rebuilt in-process and a pick beyond
     0.15 s passes only where it scores exactly what the truth does); the kernel held against its plain version
     at the suite's one new launch shape, wav5_energy's whole 5-minute
-    signal ``[30000, 120]``, and timed beside its bound.
+    signal ``[30000, 120]``, and timed beside its bound;
+15. the port's stage diagnostics, each as a user runs it (``python -m
+    ffsubsync_tpu_torch.scripts.diag_breakdown 90 2``, ``.diag_chunks 90
+    2``, runs cut from 4) in a process of its own: every line of the JAX
+    scripts with finite times and the card's ``nvidia-smi`` line, the wire
+    bytes equal to the same problem staged here, the sweep's launches 1 /
+    2 / 4 / 9 / 18 per setting and the frontend launches the knobs imply
+    (``DIAG_SCRIPTS``); diag_breakdown's align stage rerun here, its pick
+    within 0.15 s of the truth; the kernel held against its plain version
+    at diag_chunks' 600-s chunk ``[60000, 120]`` and timed beside its
+    bound; and phase 4's fused sync with ``--profile-dir``, whose
+    ``trace.json`` must hold one frontend kernel event per launch.
 
 Every path is driven with the kernel's launch count set to 0 just before
 and read just after. The last three lines of standard output are one JSON
@@ -218,6 +229,19 @@ BENCH_ARTIFACTS = {"bench": "BENCH_r05.json", "bench_batch": "BENCH_BATCH_r05.js
 # wav5_energy carries auditok's 80 ms onset bias, ROADMAP C1)
 BENCH_OFFSET_MS, SUITE_OFFSET_MS = 10.0, 150.0
 WAV5_WINDOWS = 5 * 60 * SAMPLE_RATE
+# phase 15: the stage diagnostics at full size, each a process of its own
+# with its runs cut to DIAG_RUNS (default 4). diag_chunks' sweep cuts the
+# 90 minutes into DIAG_SWEEP_CHUNKS chunks per setting of
+# FFS_TPU_PIPELINE_SECONDS. The frontend launches their knobs imply:
+# diag_breakdown's 2 chunks per pass x (3 modes x (warm + runs) + the
+# align stage's pass + one pass per pull) = 4·2·(1 + runs); diag_chunks'
+# (warm + runs) passes per setting
+DIAG_RUNS = 2
+DIAG_SWEEP_CHUNKS = {"0": 1, "2700": 2, "1350": 4, "600": 9, "300": 18}
+DIAG_LAUNCHES = {"diag_breakdown": 4 * 2 * (1 + DIAG_RUNS),
+                 "diag_chunks": (1 + DIAG_RUNS) * sum(DIAG_SWEEP_CHUNKS.values())}
+# the one new launch shape: diag_chunks' 600-s chunk
+CHUNKS600_WINDOWS = 600 * SAMPLE_RATE
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1654,8 +1678,6 @@ def bench_phase(dev, pcm, smi):
     """Phase 14. Returns a dict of what it measured."""
     import torch
 
-    from ffsubsync_tpu_torch.ops import frontend as fe
-
     torch.cuda.empty_cache()  # the scripts' processes share the card
     out = {"launches": {}, "lines": {}, "walls": {}}
     for script, knobs, want in BENCH_SCRIPTS:
@@ -1680,23 +1702,217 @@ def bench_phase(dev, pcm, smi):
             fail("bench_suite %s: offset error %r ms, bound %g ms" % (case, err, SUITE_OFFSET_MS))
     # the suite's one new launch shape: wav5_energy's auditok detector
     # stages the whole 5-minute 12 kHz signal
-    x = _staged(pcm, WAV5_WINDOWS)
+    out.update(kernel_at(_staged(pcm, WAV5_WINDOWS), "bench_suite wav5_energy"))
+    return out
+
+
+def kernel_at(x, what):
+    """The kernel at one more path's launch shape, ``x`` staged at 12 kHz
+    on the card: held against its plain version under ``TOLS``, timed
+    beside it (CUDA events), its bound, and the host's issue time of a
+    kernel call. Returns a dict of what it measured."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops import frontend as fe
+
     window = RATE // SAMPLE_RATE
     got = fe.fused_frontend(x, window, RATE)
     torch.cuda.synchronize()
     label = _shape(x)
-    out["errs"] = compare(got, fe.frontend_plain(x, window, RATE), "5-min auditok signal " + label)
-    out["shape"] = label
+    out = {"shape": label,
+           "errs": compare(got, fe.frontend_plain(x, window, RATE), "%s %s" % (what, label))}
     out["ms"] = median_ms(lambda: fe.fused_frontend(x, window, RATE), calls=KERNEL_CALLS)
     out["plain_ms"] = median_ms(lambda: fe.frontend_plain(x, window, RATE), calls=KERNEL_CALLS)
     out["host_ms"] = host_ms(lambda: fe.fused_frontend(x, window, RATE), calls=KERNEL_CALLS)
     cfg = fe.kernel_config(window, fe.wire_kind(x, window))
     bounds = frontend_bounds(x.shape[0], window, RATE, x.shape[1] * x.element_size(), cfg.n_cols)
     out["bound_ms"] = max(bounds["ops_ms"], bounds["bytes_ms"])
-    log("  kernel at bench_suite wav5_energy's launch shape %s: %.4f ms, plain %.4f ms; bound "
-        "%.4f ms (operations %.4f, bytes %.4f); the host issues a kernel call in %.4f ms"
-        % (label, out["ms"], out["plain_ms"], out["bound_ms"], bounds["ops_ms"],
+    log("  kernel at %s's launch shape %s: %.4f ms, plain %.4f ms; bound %.4f ms (operations "
+        "%.4f, bytes %.4f); the host issues a kernel call in %.4f ms"
+        % (what, label, out["ms"], out["plain_ms"], out["bound_ms"], bounds["ops_ms"],
            bounds["bytes_ms"], out["host_ms"]))
+    return out
+
+
+# phase 15: the lines of each diagnostic, as the JAX scripts print them
+# (label: pattern); a timed line names its best time and its list of times
+_TIMES = r"best (?P<best>\S+) s  all \[(?P<all>.*)\]"
+DIAG_LINES = {
+    "diag_breakdown": {
+        "device": r"device: cuda (.+) \| analysis rate (\d+)",
+        "problem": r"(\d+) spans, (\d+) samples \((\S+) MB i16\)",
+        "chunks": r"(\d+) pipeline chunks of (\d+) samples",
+        "stage_host": r"stage_host   " + _TIMES,
+        "wire": r"wire bytes: (\S+) MB",
+        "xfer": r"xfer         " + _TIMES + r"  \((\d+) MB/s best\)",
+        **{"vad[%s]" % mode: r"vad\[%s\] pipeline \(stage\+xfer\+compute\) " % mode + _TIMES
+           for mode in ("webrtc", "silero", "fused")},
+        "align": r"align        " + _TIMES,
+        "pull": r"pull         " + _TIMES,
+    },
+    "diag_chunks": {
+        "device": r"device: cuda (.+)",
+        **{"sweep %s" % seconds: r"pipeline_seconds=%s \((\d+) launches\): warm (\S+) s, "
+           r"best (?P<best>\S+) s, all \[(?P<all>.*)\]" % seconds
+           for seconds in DIAG_SWEEP_CHUNKS},
+    },
+}
+
+
+def _parse_diag(script, err, smi):
+    """Each line ``DIAG_LINES`` names, found once in ``err``: returns
+    {label: its match}. A timed line must hold ``DIAG_RUNS`` finite times
+    and a finite best; the device line must name ``smi``'s card."""
+    import math
+
+    found = {}
+    for label, pattern in DIAG_LINES[script].items():
+        hits = [m for m in map(re.compile(pattern).fullmatch, err.splitlines()) if m]
+        if len(hits) != 1:
+            fail("%s: %d lines of %r in:\n%s" % (script, len(hits), label, err[-3000:]))
+        found[label] = match = hits[0]
+        if "all" in match.groupdict():
+            times = [float(t) for t in match["all"].split(",") if t.strip()]
+            times.append(float(match["best"]))
+            if len(times) != DIAG_RUNS + 1 or not all(map(math.isfinite, times)):
+                fail("%s: %r, want %d finite times" % (script, match.group(0), DIAG_RUNS))
+    if found["device"][1] != smi:
+        fail("%s: device line %r, want %r" % (script, found["device"].group(0), smi))
+    return found
+
+
+def diag_script(script, smi):
+    """Phase 15, one diagnostic started as a user runs it (``python -m
+    ffsubsync_tpu_torch.scripts.<script> 90 DIAG_RUNS``), on the card with
+    the default pipeline chunk. Returns a function that waits for it and
+    returns (its parsed lines, launches, wall s)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FFS_TORCH_DEVICE", "FFS_TPU_PIPELINE_SECONDS")}
+    cmd = [sys.executable, "-m", "ffsubsync_tpu_torch.scripts." + script, str(MINUTES),
+           str(DIAG_RUNS)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+    def wait():
+        try:
+            _out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            fail("%s exited %d:\n%s" % (script, proc.returncode, err[-3000:]))
+        log("%s %d %d (%.1f s, a process of its own):\n  %s"
+            % (script, MINUTES, DIAG_RUNS, wall, "\n  ".join(err.strip().splitlines())))
+        launches = [int(n) for n in re.findall(r"^frontend kernel launches: (\d+)$", err, re.M)]
+        if launches != [DIAG_LAUNCHES[script]]:
+            fail("%s: frontend launches %r, the knobs imply %d"
+                 % (script, launches, DIAG_LAUNCHES[script]))
+        return _parse_diag(script, err, smi), launches[0], wall
+
+    return wait
+
+
+def profiled_sync(workdir, wav_path):
+    """Phase 15, ``--profile-dir``: phase 4's fused sync through the CLI
+    entry with a ``torch.profiler`` trace. The shift must be recovered and
+    ``trace.json`` must hold CUDA kernel events, the frontend kernel's
+    among them, one per launch. Returns a dict of what it found."""
+    import torch
+
+    from ffsubsync_tpu_torch import sync
+    from ffsubsync_tpu_torch.cli import make_parser
+
+    prof_dir = os.path.join(workdir, "profile")
+    argv = _sync_argv(workdir, wav_path, "fused") + ["--profile-dir", prof_dir]
+    with Instruments() as ins:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = sync.run(make_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _check_result("profiled fused", result)
+    path = os.path.join(prof_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    frontend = [e for e in kernels if "frontend_kernel" in e.get("name", "")]
+    names = sorted({e["name"] for e in frontend})
+    out = {"launches": ins.launches, "wall": wall, "trace_mb": os.path.getsize(path) / 1e6,
+           "kernel_events": len(kernels), "frontend_events": len(frontend),
+           "frontend_us": [e.get("dur") for e in frontend], "names": names,
+           "offset_s": result["offset_seconds"]}
+    log("profiled fused sync (--profile-dir): %.3f s wall, offset %.3f s, frontend launches %d; "
+        "trace.json %.1f MB, %d events, %d CUDA kernel events, %d of the frontend kernel %s "
+        "(card us each: %s)"
+        % (wall, result["offset_seconds"], ins.launches, out["trace_mb"], len(events),
+           len(kernels), len(frontend), names, out["frontend_us"]))
+    if not kernels:
+        fail("--profile-dir: trace.json holds no CUDA kernel event")
+    if len(frontend) != ins.launches or ins.launches == 0:
+        fail("--profile-dir: %d frontend kernel events for %d launches"
+             % (len(frontend), ins.launches))
+    return out
+
+
+def diag_phase(dev, workdir, wav_path, smi):
+    """Phase 15. Returns a dict of what it measured."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops.vad import make_detector
+    from ffsubsync_tpu_torch.scripts import diag_breakdown as diag
+    from ffsubsync_tpu_torch.scripts.bench import make_problem
+
+    torch.cuda.empty_cache()  # the scripts' processes share the card
+    out = {"launches": {}, "lines": {}, "walls": {}}
+    # the problem both scripts make, made here while diag_breakdown makes
+    # its own; the card stays theirs while they time it, one at a time
+    wait = diag_script("diag_breakdown", smi)
+    pcm, _spans, _sub, candidates, _ratios = make_problem(MINUTES, RATE)
+    done = {"diag_breakdown": wait(), "diag_chunks": diag_script("diag_chunks", smi)()}
+    for script, (lines, launches, wall) in done.items():
+        out["lines"][script], out["launches"][script], out["walls"][script] = lines, launches, wall
+    lines = out["lines"]["diag_breakdown"]
+    chunks = diag.pipeline_chunks(pcm, RATE)
+    wire = "%.1f" % (sum(f.nbytes for f, _r, _w, _n in diag.stage_host(chunks, RATE)) / 1e6)
+    if (lines["wire"][1] != wire or lines["problem"][2] != str(len(pcm))
+            or lines["chunks"].groups() != (str(len(chunks)), str(len(chunks[0])))):
+        fail("diag_breakdown: %r, %r and %r, staged here %s MB in %d chunks of %d samples of %d"
+             % (lines["wire"].group(0), lines["chunks"].group(0), lines["problem"].group(0), wire,
+                len(chunks), len(chunks[0]), len(pcm)))
+    sweep = out["lines"]["diag_chunks"]
+    got = {s: int(sweep["sweep %s" % s][1]) for s in DIAG_SWEEP_CHUNKS}
+    if got != DIAG_SWEEP_CHUNKS:
+        fail("diag_chunks: launches per setting %r, want %r" % (got, DIAG_SWEEP_CHUNKS))
+    # what the scripts leave out of their windows and bench's stage_s holds:
+    # building a fused detector (the net's weights onto the card)
+    builds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = make_detector("fused", SAMPLE_RATE, RATE, 0.0, dev)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    out["detector_build_s"] = sorted(builds)[len(builds) // 2]
+    log("fused detector build (the net's weights onto the card): median %.4f s of 5, all %s"
+        % (out["detector_build_s"], ["%.4f" % b for b in builds]))
+    # the search's pick, which the script does not check: its align stage
+    # rerun here on the same problem
+    signal = diag.vad(det, pcm, dev)
+    _on_card([signal], "diag_breakdown's align stage")
+    results = diag.align(signal, candidates)
+    best = max(range(len(results)), key=lambda i: results[i].score)
+    out["offset_s"] = results[best].offset / SAMPLE_RATE
+    log("diag_breakdown's align stage in-process: candidate %d, offset %.2f s (truth %.2f), "
+        "score %.1f; wire bytes %s MB staged here" % (best, out["offset_s"], TRUE_OFFSET_S,
+                                                       results[best].score, wire))
+    if best != 0 or abs(out["offset_s"] - TRUE_OFFSET_S) > 0.15:
+        fail("diag_breakdown's align stage: candidate %d at %.3f s, truth ratio 1.0 at %.3f s"
+             % (best, out["offset_s"], TRUE_OFFSET_S))
+    # diag_chunks' one new launch shape: its 600-s chunk of the problem
+    out.update(kernel_at(_staged(pcm, CHUNKS600_WINDOWS), "diag_chunks' 600-s chunk"))
+    del pcm, signal, det
+    out["profile"] = profiled_sync(workdir, wav_path)
     return out
 
 
@@ -1861,6 +2077,13 @@ def main():
         for script, launches in benches["launches"].items():
             results[script] = (launches,)
         log("phase 14 (the benchmark scripts) took %.1f s" % (time.perf_counter() - t14))
+        t15 = time.perf_counter()
+        diag = diag_phase(dev, workdir, wav_path, smi)
+        for script, launches in diag["launches"].items():
+            results[script] = (launches,)
+        results["profile"] = (diag["profile"]["launches"],)
+        log("phase 15 (the stage diagnostics, --profile-dir) took %.1f s"
+            % (time.perf_counter() - t15))
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
         "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
@@ -1888,14 +2111,15 @@ def main():
                 "replaces": "ffsubsync_tpu/ops/pallas/frontend.py:225",
                 "launches": results["fused"][0],
                 # worst log-mel abs error over every comparison (phases 3, 6,
-                # 7, 9, 10, 11, 13 and 14)
+                # 7, 9, 10, 11, 13, 14 and 15)
                 "max_abs_err": max([worst["logmel"], chunk_errs["logmel"],
                                     auditok_errs["logmel"], multiseg_errs["logmel"],
                                     shard_errs["logmel"]]
                                    + [e["logmel"] for e in train["errs"].values()]
                                    + [e["logmel"] for e in eval_errs.values()]
                                    + [e["logmel"] for e in babble["errs"].values()]
-                                   + [results["jitter"][2]["logmel"], benches["errs"]["logmel"]]),
+                                   + [results["jitter"][2]["logmel"], benches["errs"]["logmel"],
+                                      diag["errs"]["logmel"]]),
                 # all three outputs at each path's own launch shape
                 "chunk_max_abs_err": chunk_errs,
                 "auditok_max_abs_err": auditok_errs,
@@ -1917,6 +2141,12 @@ def main():
                 "wav5_plain_ms": benches["plain_ms"],
                 "wav5_bound_ms": benches["bound_ms"],
                 "wav5_host_ms": benches["host_ms"],
+                # diag_chunks' 600-s chunk [60000, 120] int8 (phase 15)
+                "chunks600_max_abs_err": diag["errs"],
+                "chunks600_ms": diag["ms"],
+                "chunks600_plain_ms": diag["plain_ms"],
+                "chunks600_bound_ms": diag["bound_ms"],
+                "chunks600_host_ms": diag["host_ms"],
                 "babble_plain_ms": babble["plain_ms"],
                 "babble_bound_ms": babble["bound_ms"],
                 "babble_host_ms": babble["host_ms"],
@@ -1939,7 +2169,8 @@ def main():
                 "library_ms": chunk["library_ms"],
                 "ms_by_path": dict(chunk["ms_by_path"], **{
                     "babble " + shape: ms for shape, ms in babble["ms"].items()},
-                    **{"wav5 " + benches["shape"]: benches["ms"]}),
+                    **{"wav5 " + benches["shape"]: benches["ms"],
+                       "chunks600 " + diag["shape"]: diag["ms"]}),
                 "windows_by_path": PATH_WINDOWS,
                 "config": chunk["config"],
                 "ptxas": ptxas,
@@ -1953,7 +2184,9 @@ def main():
                 # searches (no kernel), "babble", "jitter" and "bias" the
                 # probes, the last summed over its harness's process;
                 # "bench", "bench_batch" and "bench_suite" the benchmark
-                # scripts, each over its own process)
+                # scripts, "diag_breakdown" and "diag_chunks" the stage
+                # diagnostics, each over its own process; "profile" the
+                # --profile-dir sync)
                 "path_launches": {label: r[0] for label, r in results.items()},
             }
         ]

@@ -85,6 +85,15 @@ os.environ.update(BENCH_PLATFORM="cpu", BENCH_MINUTES="1", BENCH_RUNS="1", BENCH
                   BENCH_VAD_RUNS="1", BENCH_EPISODES="2")
 assert bench.main() == 0 and bench_batch.main() == 0
 assert bench_suite.main(1.0, 1.0, 2.0, 2) == 0
+from ffsubsync_tpu_torch.scripts import diag_breakdown, diag_chunks
+from ffsubsync_tpu_torch.ops.vad import make_detector
+cpu = torch.device("cpu")
+pcm, _spans, _sub, candidates, _ratios = bench.make_problem(1.0, 12000)
+staged = diag_breakdown.stage_host(diag_breakdown.pipeline_chunks(pcm, 12000), 12000)
+assert len(diag_breakdown.xfer(staged, cpu)) == 1
+signal = diag_breakdown.vad(make_detector("fused", 100, 12000, 0.0, cpu), pcm, cpu)
+assert max(diag_breakdown.align(signal, candidates), key=lambda a: a.score).offset == 734
+assert len(diag_breakdown.pull(signal)[0]) == 6000 and diag_chunks.SETTINGS[0] == "0"
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and m.split(".")[0] in ("jax", "optax", "ffsubsync_tpu")]
 assert not loaded, loaded
@@ -95,8 +104,9 @@ print("NO_JAX_SYNC_OK", result["offset_seconds"])
 def test_fused_wav_sync_runs_with_jax_blocked(tmp_path):
     """The fused, auditok, multi-segment and batch syncs of a WAV, the
     sharded VAD, two training steps, one eval condition, the device branch
-    of ``align_signal_pair``, two babble-probe steps, the GUI module and
-    the three benchmark scripts at their smallest, with jax, optax and the
+    of ``align_signal_pair``, two babble-probe steps, the GUI module, the
+    three benchmark scripts at their smallest and ``diag_breakdown``'s
+    stages at 1 minute (``diag_chunks`` imported), with jax, optax and the
     JAX package made unimportable and the fixtures taken from the port; no
     module of any of them loads."""
     env = dict(os.environ, FFS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
@@ -168,6 +178,13 @@ def test_no_source_file_imports(root):
         if names:
             offenders[os.path.relpath(path, REPO)] = names
     assert not offenders
+
+
+def test_scan_covers_the_diagnostics():
+    """The scan walks the package, so it reads the stage diagnostics."""
+    scripts = os.path.join(PKG, "scripts")
+    diagnostics = {os.path.join(scripts, name) for name in ("diag_breakdown.py", "diag_chunks.py")}
+    assert diagnostics <= set(_sources())
 
 
 def test_scan_finds_every_import_form(tmp_path):
