@@ -14,6 +14,7 @@ VAD (``parallel/vad_shard.py``) and the batch search
 import os
 from typing import Tuple
 
+import numpy as np
 import torch
 
 DEVICE_ENV = "FFS_TORCH_DEVICE"
@@ -41,3 +42,17 @@ def local_mesh(device: torch.device) -> Tuple[torch.device, ...]:
     if device.type == "cuda":
         return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
     return (torch.device("cpu"),)
+
+
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` as a tensor on ``device``, copied without waiting for the
+    device. A plain ``.to(cuda)`` of pageable memory waits for all work
+    queued on the stream (PyTorch synchronizes after its copy), which
+    stalls a pipeline whose next chunk is staged while the card runs this
+    one; from page-locked memory the copy is queued like a kernel, and the
+    caching host allocator keeps the pinned block until it has run. A CPU
+    device takes the array as it is."""
+    tensor = torch.from_numpy(array)
+    if device.type != "cuda":
+        return tensor.to(device)
+    return tensor.pin_memory().to(device, non_blocking=True)

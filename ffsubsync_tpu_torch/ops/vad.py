@@ -23,6 +23,7 @@ one-program rule, as in the reference: one frontend launch over the whole
 signal, one pull of its window powers, and the auditok-class tokenizer on
 the host (a sequential state machine the device is wrong for).
 """
+import functools
 import logging
 import os
 from typing import Callable, Dict, List, Optional, Tuple
@@ -30,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ffsubsync_tpu_torch.device import host_to_device
 from ffsubsync_tpu_torch.models.neural_vad import (
     CONTEXT,
     N_MELS,
@@ -100,6 +102,13 @@ def _affine_scan(a: torch.Tensor, b: torch.Tensor):
         )
         shift *= 2
     return a, b
+
+
+@functools.lru_cache(maxsize=16)
+def _band_weights(device: torch.device) -> torch.Tensor:
+    """The band weights on ``device``, made once per device: a copy from
+    the host inside a chunk's program would stall the host there."""
+    return host_to_device(_BAND_WEIGHTS, device)
 
 
 def _select_labels(mode, webrtc_labels, silero_labels):
@@ -176,8 +185,7 @@ def _webrtc_from_bands(bands, logmel, n_valid, ema_in, noise_in, prev_p_in,
     cummin = torch.cummin(torch.where(valid, ln_ema - tt, inf), dim=0).values
     ln_noise = torch.minimum(tt + cummin, torch.log(noise_in)[None, :] + tt + lng)
     snr_db = _DB_PER_LN * (ln_ema - ln_noise)
-    weights = torch.from_numpy(_BAND_WEIGHTS).to(dev)
-    score = (snr_db @ weights) / float(_BAND_WEIGHTS.sum())
+    score = (snr_db @ _band_weights(dev)) / float(_BAND_WEIGHTS.sum())
 
     flux, p = _spectral_flux(logmel, prev_p_in)
     noise_sum = torch.sum(torch.exp(ln_noise), dim=1)
@@ -442,7 +450,7 @@ def _make_onelaunch_detector(
             pcm, frame_rate, sample_rate
         )
         labels, state["s"] = _vad_program(
-            torch.from_numpy(framed).to(device), window, rate, n_windows,
+            host_to_device(framed, device), window, rate, n_windows,
             state["s"], net, non_speech_label, mode,
         )
         return labels, n_windows

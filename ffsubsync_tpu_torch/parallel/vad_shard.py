@@ -26,7 +26,6 @@ overlap. Every mask, box edge and hangover index uses the global window
 index. The target is one monolithic ``ops/vad._vad_program`` call over
 the whole signal (fresh state, one chunk), up to the reduction order.
 """
-import functools
 import logging
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -34,7 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ffsubsync_tpu_torch.device import local_mesh
+from ffsubsync_tpu_torch.device import host_to_device, local_mesh
 from ffsubsync_tpu_torch.models.neural_vad import CONTEXT, load_net
 from ffsubsync_tpu_torch.ops import vad as V
 from ffsubsync_tpu_torch.ops.features import analysis_rate, prepare_staged_input
@@ -101,12 +100,6 @@ def _all_sum(parts):
     return [total.to(p.device) for p in parts]
 
 
-@functools.lru_cache(maxsize=16)
-def _band_weights(device: torch.device) -> torch.Tensor:
-    # cached per device: a host copy inside the program would be a host sync
-    return torch.from_numpy(V._BAND_WEIGHTS).to(device)
-
-
 def _compose_affine(first, second):
     """The affine map ``y -> a*y + b`` of ``first`` then ``second``."""
     (a1, b1), (a2, b2) = first, second
@@ -151,7 +144,7 @@ def _sharded_webrtc(bands, logmel, t_global, valid, n_valid: int, mode: str,
     )
     ln_noise = [t + torch.minimum(m, p[None, :]) for t, m, p in zip(tt, loc_min, pref_min)]
     score = [
-        (V._DB_PER_LN * (le - ln)) @ _band_weights(le.device) / float(V._BAND_WEIGHTS.sum())
+        (V._DB_PER_LN * (le - ln)) @ V._band_weights(le.device) / float(V._BAND_WEIGHTS.sum())
         for le, ln in zip(ln_ema, ln_noise)
     ]
 
@@ -388,7 +381,7 @@ class ShardedDetector:
                 [framed, wire_silence_rows(framed, per * d - n_windows, window)]
             )
         shards = [
-            torch.from_numpy(framed[i * per : (i + 1) * per]).to(dev)
+            host_to_device(framed[i * per : (i + 1) * per], dev)
             for i, dev in enumerate(self.mesh)
         ]
         return shards, window, rate, n_windows
