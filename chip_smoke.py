@@ -9,9 +9,10 @@ Run from the repository root on a machine with a CUDA card and nvcc. It
 needs no network and no jax. Phases, each fatal on failure:
 
 1. probe the card (name, capability, power limit);
-2. build the CUDA kernels from ``ffsubsync_tpu_torch/csrc`` (timed), print
-   ptxas's registers and spills, and check that the SASS (``cuobjdump
-   -sass``) holds tensor-core MMA instructions (HMMA or HGMMA);
+2. build the CUDA kernels from ``ffsubsync_tpu_torch/csrc`` (one nvcc per
+   source, all at once; timed), print ptxas's registers and spills, and
+   check that the SASS (``cuobjdump -sass``) holds tensor-core MMA
+   instructions (HMMA or HGMMA);
 3. hold the frontend kernel against its plain PyTorch version on the card:
    every rate tier with trained weights plus the legacy 48 kHz window and
    the 220- and 441-sample windows of 22.05 and 44.1 kHz audio, every
@@ -25,7 +26,8 @@ needs no network and no jax. Phases, each fatal on failure:
    to a shifted .srt through the port's CLI entry, with ``--vad fused`` and
    with the default VAD; the shift must be recovered within 0.15 s, the
    kernel must have run once per dispatched chunk, and the labels must
-   reach the aligner as CUDA tensors;
+   reach the aligner as CUDA tensors; the scan kernel must have run 8
+   times per chunk and the offset be the truth's window (7.34 s);
 5. fused labels of 10 minutes of that audio, card against CPU;
 6. ``--vad auditok`` on the same WAV through the CLI: one frontend launch
    for the whole signal, the shift within 0.15 s, and the card's labels
@@ -117,12 +119,26 @@ needs no network and no jax. Phases, each fatal on failure:
     within 0.15 s of the truth; the kernel held against its plain version
     at diag_chunks' 600-s chunk ``[60000, 120]`` and timed beside its
     bound; and phase 4's fused sync with ``--profile-dir``, whose
-    ``trace.json`` must hold one frontend kernel event per launch.
+    ``trace.json`` must hold one frontend kernel event per launch and the
+    scan kernel's events;
+16. the scan kernel of the webrtc-class detector (``csrc/scan.cu``):
+    the detector's program at each path's own shapes (a 45-minute chunk,
+    the whole 90 minutes as one chunk, a 44-minute episode, a 60 s
+    segment, and the sharded program on 4 shards of ``cuda:0``) by the
+    kernel and by the plain version, the labels under the SP bounds, the
+    carried state within ``SCAN_STATE_RTOL`` and every scan held against
+    its plain version (``_scan_errors``), timed beside plain, one
+    ``torch.cumsum`` per scan over the transposed layout and the bound;
+    one ``_vad_program`` per mode on a 45-minute chunk with its scans by
+    the kernel and by the plain version, in turns; and ``dispatch_async``
+    of the 90 minutes for webrtc, silero and fused under
+    ``torch.cuda.set_sync_debug_mode("error")``, beside the fused detector
+    with the pageable copies the port made before.
 
-Every path is driven with the kernel's launch count set to 0 just before
-and read just after. The last three lines of standard output are one JSON
-object describing the kernels, the card's name and power limit, and one
-JSON object ``{"ok": true, "device": {...}}``.
+Every path is driven with both kernels' launch counts set to 0 just
+before and read just after. The last three lines of standard output are
+one JSON object describing the kernels, the card's name and power limit,
+and one JSON object ``{"ok": true, "device": {...}}``.
 
 ``--measure`` runs phases 1 and 2, synthesizes the same WAV, and then
 prints what PERF.md cites: the wall seconds of repeated syncs of every
@@ -242,6 +258,26 @@ DIAG_LAUNCHES = {"diag_breakdown": 4 * 2 * (1 + DIAG_RUNS),
                  "diag_chunks": (1 + DIAG_RUNS) * sum(DIAG_SWEEP_CHUNKS.values())}
 # the one new launch shape: diag_chunks' 600-s chunk
 CHUNKS600_WINDOWS = 600 * SAMPLE_RATE
+# phase 16: the scan kernel at each path's own shapes, in windows of
+# the detector: a 45-minute pipeline chunk (fused, default), the whole 90
+# minutes as one chunk (FFS_TPU_PIPELINE_SECONDS=0), a 44-minute batch
+# episode and a 60 s segment; the sharded program's scans on 4 shards of
+# cuda:0 beside them ("sp")
+SCAN_PATHS = {"fused": 270000, "whole": 540000, "batch": 264000, "multiseg": 6000}
+SCANS_PER_PROGRAM = 8  # the detector's scans per chunk (or per shard)
+# each scan of the kernel against its plain version on the same inputs:
+# min and max exact; add and the affine pair within SCAN_RTOL of the
+# largest |plain| of the output, and the kernel no farther from a float64
+# scan than the plain version (or within 1e-6 of max |plain|). The plain
+# prefix sums run one thread per column down all the rows in float32 and
+# drift: at 540,000 windows they lay 1.7e-4 of max |plain| from float64,
+# the kernel's two-level sums 2e-7 (one NVIDIA H100 80GB HBM3, 700.00 W).
+# The detector's labels under the SP bounds above and its carried state
+# within SCAN_STATE_RTOL (tests/test_torch_webrtc.py's)
+SCAN_RTOL, SCAN_STATE_RTOL = 1e-3, 1e-4
+SCAN_PATH_LAUNCHES = {}  # scan-kernel launches of each driven path
+VAD_MODES = ("webrtc", "silero", "weighted")  # the _vad_program timings
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -281,13 +317,21 @@ def build():
     result = _build.build_library()
     log("build: %.2f s -> %s" % (result.seconds, os.path.relpath(result.path)))
     # one line per kernel instantiation: frontend_kernel<rows, warp
-    # columns, resident basis>, its registers and spilled bytes
+    # columns, resident basis> or scan_tiles<op, pass> and scan_totals<op>,
+    # its registers and spilled bytes
     ptxas, name, spills = [], "?", 0
     for line in result.log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             args = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", entry.group(1))
-            name = "frontend_kernel<%s,%s,%s>" % args.groups() if args else entry.group(1)
+            scan_op = re.search(r"(scan_tiles|scan_totals)I\w*?(AddF32|MinF32|MaxF32|MinI32|"
+                                r"MaxI32|AffineF32)E(?:Li(\d)E)?", entry.group(1))
+            if args:
+                name = "frontend_kernel<%s,%s,%s>" % args.groups()
+            elif scan_op:
+                name = "%s<%s>" % (scan_op.group(1), ",".join(g for g in scan_op.groups()[1:] if g))
+            else:
+                name = entry.group(1)
         for n in re.findall(r"(\d+) bytes spill", line):
             spills += int(n)
         regs = re.search(r"Used (\d+) registers", line)
@@ -614,15 +658,21 @@ def _check_result(label, result):
 
 
 class Instruments:
-    """What one driven path did. On entry the kernel's launch count is set
-    to 0 and wrappers start to record each ``_vad_program`` call (and the
-    first one's staged input, ``first_input``) and what the single and
-    batched searches received and returned; on exit the count is read
-    (``launches``) and the wrappers are removed."""
+    """What one driven path did. On entry both kernels' launch counts are
+    set to 0 and wrappers start to record each ``_vad_program`` call (and
+    the first one's staged input, ``first_input``) and what the single and
+    batched searches received and returned; on exit the counts are read
+    (``launches``: the frontend kernel's; ``scan_launches``: the scan
+    kernel's, kept in ``SCAN_PATH_LAUNCHES[label]`` where a label is given)
+    and the wrappers are removed."""
+
+    def __init__(self, label=None):
+        self.label = label
 
     def __enter__(self):
         from ffsubsync_tpu_torch import sync
         from ffsubsync_tpu_torch.ops import frontend as fe
+        from ffsubsync_tpu_torch.ops import scan
         from ffsubsync_tpu_torch.ops import vad
         from ffsubsync_tpu_torch.parallel.batch import BatchAligner
 
@@ -649,15 +699,20 @@ class Instruments:
 
         vad._vad_program, sync.align_candidates, BatchAligner.align_batch = program, align, batch
         fe.fused_frontend.launches = 0
+        scan.launches = 0
         return self
 
     def __exit__(self, *exc):
         from ffsubsync_tpu_torch import sync
         from ffsubsync_tpu_torch.ops import frontend as fe
+        from ffsubsync_tpu_torch.ops import scan
         from ffsubsync_tpu_torch.ops import vad
         from ffsubsync_tpu_torch.parallel.batch import BatchAligner
 
         self.launches = fe.fused_frontend.launches
+        self.scan_launches = scan.launches
+        if self.label is not None:
+            SCAN_PATH_LAUNCHES[self.label] = self.scan_launches
         vad._vad_program, sync.align_candidates, BatchAligner.align_batch = self._real
         return False
 
@@ -676,14 +731,16 @@ def main_path(workdir, wav_path):
     """Phase 4. Returns {label: (frontend launches, wall s, offset error)}."""
     results = {}
     for label in ("fused", "default"):
-        with Instruments() as ins:
+        with Instruments(label) as ins:
             result, wall = _timed_sync(workdir, wav_path, label)
-        log("%s sync: %.3f s wall, result %s, frontend launches %d, chunks "
-            "dispatched %d" % (label, wall, result, ins.launches, len(ins.programs)))
+        log("%s sync: %.3f s wall, result %s, frontend launches %d, scan launches %d, "
+            "chunks dispatched %d" % (label, wall, result, ins.launches, ins.scan_launches,
+                                      len(ins.programs)))
         err = _check_result(label, result)
         if ins.launches == 0 or ins.launches != len(ins.programs):
             fail("%s: %d frontend kernel launches for %d dispatched chunks"
                  % (label, ins.launches, len(ins.programs)))
+        _check_scans(label, ins.scan_launches, len(ins.programs))
         _on_card([ref for ref, _c, _o in ins.searches], label)
         results[label] = (ins.launches, wall, err)
     return results
@@ -719,13 +776,14 @@ def auditok_phase(workdir, wav_path, pcm, dev):
     from ffsubsync_tpu_torch.ops import frontend as fe
     from ffsubsync_tpu_torch.ops.features import prepare_staged_input
 
-    with Instruments() as ins:
+    with Instruments("auditok") as ins:
         result, wall = _timed_sync(workdir, wav_path, "auditok")
     log("auditok sync: %.3f s wall, result %s, frontend launches %d"
         % (wall, result, ins.launches))
     err = _check_result("auditok", result)
     if ins.launches != 1:
         fail("auditok: %d frontend kernel launches for the whole signal, not 1" % ins.launches)
+    _check_scans("auditok", ins.scan_launches, 0)  # the host tokenizer scans nothing
     _on_card([ref for ref, _c, _o in ins.searches], "auditok")
     # the same sync by the port on the CPU (frontend_plain, host tokenizer)
     chosen = os.environ.get("FFS_TORCH_DEVICE")
@@ -784,7 +842,7 @@ def multiseg_phase(workdir, wav_path):
 
     from ffsubsync_tpu_torch.ops import frontend as fe
 
-    with Instruments() as ins:
+    with Instruments("multiseg") as ins:
         result, wall = _timed_sync(workdir, wav_path, "multiseg")
     log("multi-segment sync: %.3f s wall, result %s, frontend launches %d, "
         "segments dispatched %d" % (wall, result, ins.launches, len(ins.programs)))
@@ -792,6 +850,7 @@ def multiseg_phase(workdir, wav_path):
     if ins.launches != SEGMENTS or len(ins.programs) != SEGMENTS:
         fail("multi-segment: %d frontend launches for %d dispatched segments (want %d)"
              % (ins.launches, len(ins.programs), SEGMENTS))
+    _check_scans("multi-segment", ins.scan_launches, SEGMENTS)
     x, window, rate = ins.first_input
     if x.device.type != "cuda" or x.shape[0] != 60 * SAMPLE_RATE:
         fail("multi-segment: a segment staged as %r on %s" % (tuple(x.shape), x.device))
@@ -856,7 +915,7 @@ def batch_phase(jobs):
 
     from ffsubsync_tpu_torch.ops.align import align_candidates
 
-    with Instruments() as ins:
+    with Instruments("batch") as ins:
         results, wall = _timed_batch(jobs)
     log("batch of %d x %d min: %.3f s wall, offsets %s, frontend launches %d, chunks "
         "dispatched %d" % (len(jobs), EPISODE_SECONDS // 60, wall,
@@ -865,6 +924,7 @@ def batch_phase(jobs):
     if ins.launches != len(jobs) or len(ins.programs) != len(jobs):
         fail("batch: %d frontend launches for %d dispatched chunks (want %d)"
              % (ins.launches, len(ins.programs), len(jobs)))
+    _check_scans("batch", ins.scan_launches, len(jobs))
     if len(ins.batches) != 1:
         fail("batch: %d batched searches, not 1" % len(ins.batches))
     refs, candidates, kwargs, batched = ins.batches[0]
@@ -938,6 +998,7 @@ def sp_phase(pcm, spans):
     from ffsubsync_tpu_torch.subs.raster import rasterize_intervals
     from ffsubsync_tpu_torch.models.neural_vad import load_net
     from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.ops import scan
     from ffsubsync_tpu_torch.ops import vad
     from ffsubsync_tpu_torch.ops.align import align_candidates
     from ffsubsync_tpu_torch.ops.features import prepare_staged_input
@@ -952,15 +1013,19 @@ def sp_phase(pcm, spans):
     det = vad_shard.make_sharded_detector(meshes[0], "weighted", SAMPLE_RATE, RATE, 0.0)
     torch.cuda.synchronize()
     fe.fused_frontend.launches = 0
+    scan.launches = 0
     t0 = time.perf_counter()
     signal = det(pcm)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fe.fused_frontend.launches
+    SCAN_PATH_LAUNCHES["sp"] = scan.launches
     log("sharded VAD, weighted, %d shards of %s: %.4f s wall from PCM (staging "
-        "included), frontend launches %d" % (len(meshes[0]), card, wall, launches))
+        "included), frontend launches %d, scan launches %d"
+        % (len(meshes[0]), card, wall, launches, SCAN_PATH_LAUNCHES["sp"]))
     if launches != len(meshes[0]):
         fail("sharded call: %d frontend launches for %d shards" % (launches, len(meshes[0])))
+    _check_scans("sharded call", SCAN_PATH_LAUNCHES["sp"], len(meshes[0]))
     if signal.device != card or len(signal) != n_windows:
         fail("sharded labels: %d windows on %s" % (len(signal), signal.device))
     cand = rasterize_intervals([(a - TRUE_OFFSET_S, b - TRUE_OFFSET_S) for a, b in spans],
@@ -1046,7 +1111,7 @@ def sp_gate_phase(workdir, wav_path, chunked_launches):
 
     os.environ["FFS_TPU_SP_VAD"] = "1"
     try:
-        with Instruments() as ins:
+        with Instruments("fused_sp_env") as ins:
             result, wall = _timed_sync(workdir, wav_path, "fused")
     finally:
         del os.environ["FFS_TPU_SP_VAD"]
@@ -1289,7 +1354,7 @@ def eval_phase():
     eval_data.condition_clips = cached
     try:
         torch.cuda.synchronize()
-        with Instruments() as ins:
+        with Instruments("eval") as ins:
             t0 = time.perf_counter()
             card = ev.evaluate(EVAL_BACKENDS, 1, EVAL_SECONDS, EVAL_RATE, 0,
                                device=torch.device("cuda"))
@@ -1312,7 +1377,7 @@ def eval_phase():
     log("adversarial eval card vs CPU: worst accuracy difference %.4f" % worst)
     if worst > EVAL_ACC_TOL:
         fail("eval: card and CPU accuracies differ by %.4f" % worst)
-    with Instruments() as ins:
+    with Instruments("agree") as ins:
         report = ag.run_synthetic(list(AGREE_VADS), AGREE_MINUTES, 12000, 0,
                                   scenarios=list(AGREE_SCENARIOS))
     violations = ag.check_bars(report, 12000)
@@ -1530,7 +1595,7 @@ def jitter_phase():
     movie)."""
     from ffsubsync_tpu_torch.scripts import probe_noisy_jitter as jitter
 
-    with Instruments() as ins:
+    with Instruments("jitter") as ins:
         report = jitter.sweep(list(JITTER_VADS), [JITTER_SEED], [JITTER_MINUTES], 12000)
     (row,) = report["sweep"]
     (want,) = [r for r in _artifact("EVAL_noisy_jitter.json")["sweep"]
@@ -1825,7 +1890,7 @@ def profiled_sync(workdir, wav_path):
 
     prof_dir = os.path.join(workdir, "profile")
     argv = _sync_argv(workdir, wav_path, "fused") + ["--profile-dir", prof_dir]
-    with Instruments() as ins:
+    with Instruments("profile") as ins:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = sync.run(make_parser().parse_args(argv))
@@ -1838,10 +1903,13 @@ def profiled_sync(workdir, wav_path):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     frontend = [e for e in kernels if "frontend_kernel" in e.get("name", "")]
     names = sorted({e["name"] for e in frontend})
+    # the scan kernel: scan_tiles (one or two per call) and scan_totals
+    scans = [e for e in kernels if "scan_t" in e.get("name", "")]
     out = {"launches": ins.launches, "wall": wall, "trace_mb": os.path.getsize(path) / 1e6,
            "kernel_events": len(kernels), "frontend_events": len(frontend),
            "frontend_us": [e.get("dur") for e in frontend], "names": names,
-           "offset_s": result["offset_seconds"]}
+           "offset_s": result["offset_seconds"], "scan_launches": ins.scan_launches,
+           "scan_events": len(scans), "scan_us": sum(e.get("dur", 0) for e in scans)}
     log("profiled fused sync (--profile-dir): %.3f s wall, offset %.3f s, frontend launches %d; "
         "trace.json %.1f MB, %d events, %d CUDA kernel events, %d of the frontend kernel %s "
         "(card us each: %s)"
@@ -1852,6 +1920,11 @@ def profiled_sync(workdir, wav_path):
     if len(frontend) != ins.launches or ins.launches == 0:
         fail("--profile-dir: %d frontend kernel events for %d launches"
              % (len(frontend), ins.launches))
+    log("  the scan kernel in the trace: %d events (%d scan calls), %.1f card us in all"
+        % (len(scans), ins.scan_launches, out["scan_us"]))
+    if ins.scan_launches == 0 or len(scans) < ins.scan_launches:
+        fail("--profile-dir: %d scan kernel events for %d scan calls"
+             % (len(scans), ins.scan_launches))
     return out
 
 
@@ -1916,6 +1989,308 @@ def diag_phase(dev, workdir, wav_path, smi):
     return out
 
 
+def _check_scans(what, got, programs):
+    """The scan kernel's launches on a driven path: SCANS_PER_PROGRAM per
+    detector program (a chunk, segment, job or shard)."""
+    if got != SCANS_PER_PROGRAM * programs:
+        fail("%s: %d scan kernel launches for %d detector programs (want %d each)"
+             % (what, got, programs, SCANS_PER_PROGRAM))
+
+
+class ScanCalls:
+    """Within the block every scan of the detectors takes the kernel (or,
+    with ``plain``, its plain version) and, with ``record``, is kept in
+    ``calls`` as (key, inputs, reverse)."""
+
+    def __init__(self, plain=False, record=True):
+        self.plain, self.record = plain, record
+
+    def __enter__(self):
+        from ffsubsync_tpu_torch.ops import scan
+
+        self.calls = []
+        self._real = (scan.scan_cols, scan.affine_scan)
+        cols = scan.scan_cols_plain if self.plain else scan.scan_cols
+        affine = scan.affine_scan_plain if self.plain else scan.affine_scan
+
+        def scan_cols(x, op, reverse=False):
+            if self.record:
+                self.calls.append((op + ("_reverse" if reverse else ""), (x,), reverse))
+            return cols(x, op, reverse)
+
+        def affine_scan(a, b):
+            if self.record:
+                self.calls.append(("affine", (a, b), False))
+            return affine(a, b)
+
+        scan.scan_cols, scan.affine_scan = scan_cols, affine_scan
+        return self
+
+    def __exit__(self, *exc):
+        from ffsubsync_tpu_torch.ops import scan
+
+        scan.scan_cols, scan.affine_scan = self._real
+        return False
+
+
+def _run_scan(call, plain):
+    """One recorded scan again, by the kernel or its plain version; a tuple
+    of outputs."""
+    from ffsubsync_tpu_torch.ops import scan
+
+    key, xs, reverse = call
+    if key == "affine":
+        return (scan.affine_scan_plain if plain else scan.affine_scan)(*xs)
+    cols = scan.scan_cols_plain if plain else scan.scan_cols
+    return (cols(xs[0], key.split("_")[0], reverse),)
+
+
+def scan_bounds(calls):
+    """The least time the card could take for the recorded scans, in ms:
+    each input read once and each output written once at 3.35 TB/s, and one
+    operation per element (three per affine pair) at the float32 peak."""
+    nbytes = sum(2 * x.numel() * x.element_size() for _key, xs, _rev in calls for x in xs)
+    ops = sum(xs[0].numel() * (3 if key == "affine" else 1) for key, xs, _rev in calls)
+    return {"bytes_ms": nbytes / PEAK_BYTES * 1e3, "ops_ms": ops / PEAK_F32 * 1e3,
+            "mbytes": nbytes / 1e6}
+
+
+def _exact_scan(call):
+    """One recorded scan in float64 on the card: the yardstick of the
+    float32 sums and affine pairs."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops import scan
+
+    key, xs, _reverse = call
+    if key == "affine":
+        return scan.affine_scan_plain(*(x.double() for x in xs))
+    return (torch.cumsum(xs[0].double(), dim=0),)
+
+
+def _scan_errors(calls, what):
+    """Every recorded scan, kernel against plain on its inputs. min and max
+    must be equal. add and the affine pair, both float32, must lie within
+    SCAN_RTOL of the largest |plain|, and the kernel no farther from the
+    float64 scan than the plain version is (or than 1e-6 of the largest
+    |plain|). Returns (largest |kernel - plain|, the same relative to its
+    output's max |plain|, and the largest distance from float64 relative
+    to max |plain| of the kernel and of the plain version)."""
+    import torch
+
+    worst = {"abs": 0.0, "rel": 0.0, "kernel_f64": 0.0, "plain_f64": 0.0}
+    for call in calls:
+        got, want = _run_scan(call, False), _run_scan(call, True)
+        exact = _exact_scan(call) if call[0] in ("add", "affine") else want
+        for g, w, e in zip(got, want, exact):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail("%s, %s: kernel %s %r, plain %s %r" % (what, call[0], g.dtype,
+                                                           tuple(g.shape), w.dtype, tuple(w.shape)))
+            scale = max(float(w.double().abs().max()), 1e-30)
+            err = float((g.double() - w.double()).abs().max())
+            kern_f64 = float((g.double() - e.double()).abs().max()) / scale
+            plain_f64 = float((w.double() - e.double()).abs().max()) / scale
+            for key, value in (("abs", err), ("rel", err / scale), ("kernel_f64", kern_f64),
+                               ("plain_f64", plain_f64)):
+                worst[key] = max(worst[key], value)
+            if call[0] not in ("add", "affine"):
+                bad = not torch.equal(g, w)
+            else:
+                bad = err / scale > SCAN_RTOL or kern_f64 > max(plain_f64, 1e-6)
+            if bad:
+                fail("%s, %s scan of %r: max |kernel - plain| %.4g (%.3g of max |plain|); "
+                     "from float64 the kernel %.3g, plain %.3g of max |plain|"
+                     % (what, call[0], tuple(g.shape), err, err / scale, kern_f64, plain_f64))
+    return worst
+
+
+def _scan_path(label, run, programs):
+    """Phase 16 at one path's shapes. ``run()`` drives the path's detector
+    program(s) on the card and returns (webrtc labels, carried state or
+    None); it runs once by the kernel, with its scans recorded, and once by
+    the plain version. Returns a dict of what was measured."""
+    import numpy as np
+    import torch
+
+    with ScanCalls() as kern:
+        got, got_state = run()
+    with ScanCalls(plain=True, record=False):
+        want, want_state = run()
+    torch.cuda.synchronize()
+    calls = kern.calls
+    if len(calls) != SCANS_PER_PROGRAM * programs:
+        fail("%s: %d scans for %d detector programs" % (label, len(calls), programs))
+    flips, rest = _close_labels(got.cpu().numpy().astype(np.float64),
+                                want.cpu().numpy().astype(np.float64),
+                                "%s, webrtc labels by the scan kernel vs plain" % label)
+    state_rel = 0.0
+    for name in (got_state or {}):
+        g, w = got_state[name], want_state[name]
+        if not isinstance(g, torch.Tensor):
+            if g != w:
+                fail("%s: carried %s %r by the kernel, %r by plain" % (label, name, g, w))
+            continue
+        g, w = g.double().cpu(), w.double().cpu()
+        gap = (g - w).abs() / w.abs().clamp(min=1e-30)
+        state_rel = max(state_rel, float(gap[(g != w)].max()) if bool((g != w).any()) else 0.0)
+        if not torch.allclose(g, w, rtol=SCAN_STATE_RTOL, atol=0.0):
+            fail("%s: carried %s beyond rtol %g" % (label, name, SCAN_STATE_RTOL))
+    errs = _scan_errors(calls, label)
+    lib_inputs = [xs[0].reshape(xs[0].shape[0], -1).T.contiguous()
+                  for key, xs, _rev in calls if key != "affine"]
+    times = {"kernel": [], "plain": [], "library": []}
+    fns = {"kernel": lambda: [_run_scan(c, False) for c in calls],
+           "plain": lambda: [_run_scan(c, True) for c in calls],
+           # torch.cumsum along the innermost dim of each non-affine scan's
+           # transposed, contiguous [C, N] (never called by the port)
+           "library": lambda: [torch.cumsum(t, dim=-1, dtype=t.dtype) for t in lib_inputs]}
+    for route in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        times[route].append(median_ms(fns[route]))
+    best = {k: min(v) for k, v in times.items()}
+    bounds = scan_bounds(calls)
+    shapes = sorted({"%s %r %s" % (key, tuple(xs[0].shape), str(xs[0].dtype).replace("torch.", ""))
+                     for key, xs, _rev in calls})
+    out = {"launches": len(calls), "ms": best["kernel"], "plain_ms": best["plain"],
+           "library_ms": best["library"], "bound_ms": max(bounds["bytes_ms"], bounds["ops_ms"]),
+           "bound_by": "bytes" if bounds["bytes_ms"] >= bounds["ops_ms"] else "operations",
+           "mbytes": bounds["mbytes"], "max_abs_err": errs["abs"], "max_rel_err": errs["rel"],
+           "kernel_f64_rel": errs["kernel_f64"], "plain_f64_rel": errs["plain_f64"],
+           "flips": flips, "labels_max_diff_others": rest, "state_max_rel": state_rel,
+           "shapes": shapes}
+    log("  %s: %d scans (%s); kernel %.4f ms, plain %.4f ms, torch.cumsum of the %d "
+        "non-affine ones %.4f ms (medians of 15, best of 2 turns: %s); bound %.4f ms by %s "
+        "(%.1f MB at 3.35 TB/s; operations %.4f ms); max |kernel - plain| %.4g (%.3g of "
+        "max |plain|); from float64 the kernel %.3g, plain %.3g; labels %d windows a vote "
+        "apart; state within %.3g"
+        % (label, len(calls), "; ".join(shapes), best["kernel"], best["plain"],
+           len(lib_inputs), best["library"], json.dumps(times), out["bound_ms"],
+           out["bound_by"], bounds["mbytes"], bounds["ops_ms"], errs["abs"], errs["rel"],
+           errs["kernel_f64"], errs["plain_f64"], flips, state_rel))
+    return out
+
+
+def scan_phase(dev, pcm):
+    """Phase 16: the scan kernel against its plain version at every path's
+    shapes, timed beside plain, library and bound. Returns {path: dict}."""
+    import torch
+
+    from ffsubsync_tpu_torch.ops import _build, scan, vad
+    from ffsubsync_tpu_torch.parallel import vad_shard
+
+    if _build.load_library().ffs_scan_tile_rows() != scan.TILE_ROWS:
+        fail("csrc/scan.cu tiles %d rows, ops/scan.py says %d"
+             % (_build.load_library().ffs_scan_tile_rows(), scan.TILE_ROWS))
+    window = RATE // SAMPLE_RATE
+    out = {}
+    for label, windows in SCAN_PATHS.items():
+        x = _staged(pcm, windows)
+
+        def run(x=x, windows=windows):
+            labels, state = vad._vad_program(x, window, RATE, windows, vad.initial_state(dev),
+                                              None, 0.0, "webrtc")
+            return labels, {k: state[k] for k in ("ema", "noise", "prev_m", "prev_m_len",
+                                                  "prev_ldb", "prev_ldb_len")}
+
+        out[label] = _scan_path(label, run, 1)
+        del x
+    card = torch.device("cuda", 0)
+    det = vad_shard.make_sharded_detector([card] * 4, "webrtc", SAMPLE_RATE, RATE, 0.0)
+    staged = det.stage(pcm)
+    out["sp"] = _scan_path("sp (4 shards of cuda:0)", lambda: (det.run(*staged), None), 4)
+    return out
+
+
+def vad_program_routes(dev, pcm):
+    """Phase 16: one ``_vad_program`` per mode on a 45-minute chunk, its
+    scans by the kernel and by the plain version, in turns (plain, kernel,
+    kernel, plain). Returns {mode: {route: ms}}."""
+    from ffsubsync_tpu_torch.models.neural_vad import load_net
+    from ffsubsync_tpu_torch.ops import vad
+
+    n = SCAN_PATHS["fused"]
+    x = _staged(pcm, n)
+    window = RATE // SAMPLE_RATE
+    out = {}
+    for mode in VAD_MODES:
+        net = None if mode == "webrtc" else load_net(RATE, dev)
+        times = {"plain": [], "kernel": []}
+        for route in ("plain", "kernel", "kernel", "plain"):
+            with ScanCalls(plain=route == "plain", record=False):
+                times[route].append(median_ms(lambda: vad._vad_program(
+                    x, window, RATE, n, vad.initial_state(dev), net, 0.0, mode), n=5, warm=2))
+        out[mode] = {route: min(v) for route, v in times.items()}
+        log("  _vad_program %s, 45-min chunk [%d, %d]: scans by the kernel %.3f ms, by the "
+            "plain version %.3f ms (CUDA events, median of 5, best of 2 turns: %s)"
+            % (mode, n, window, out[mode]["kernel"], out[mode]["plain"], json.dumps(times)))
+    return out
+
+
+def sync_free_dispatch(dev, pcm):
+    """Phase 16: ``dispatch_async`` of the whole 90 minutes (two pipeline
+    chunks) under ``torch.cuda.set_sync_debug_mode("error")`` for webrtc,
+    silero and fused, each on a fresh detector after a warm one made the
+    constants: any host sync while the chunks are staged and queued
+    raises. Beside it, the fused detector with the copies the port made
+    before (staged in pageable memory and copied by a plain
+    ``.to(device)``, the band weights copied per chunk):
+    the seconds until ``dispatch_async`` returns and until the card is
+    done, for each. Returns a dict of them."""
+    import numpy as np
+    import torch
+
+    from ffsubsync_tpu_torch.ops import frontend as fe
+    from ffsubsync_tpu_torch.ops import scan, vad
+    from ffsubsync_tpu_torch.ops.features import prepare_staged_input
+
+    def dispatch(mode, sync_debug):
+        det = vad.make_detector(mode, SAMPLE_RATE, RATE, 0.0, dev)
+        torch.cuda.synchronize()
+        fe.fused_frontend.launches = 0
+        scan.launches = 0
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode(sync_debug)
+        try:
+            handles = det.dispatch_async(pcm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+        labels = det.gather(handles).materialize()
+        scans = scan.launches
+        if (len(labels) != MINUTES * 60 * SAMPLE_RATE or not np.isfinite(labels).all()
+                or fe.fused_frontend.launches != len(handles)):
+            fail("dispatch_async %s: %d labels, %d frontend launches for %d chunks"
+                 % (mode, len(labels), fe.fused_frontend.launches, len(handles)))
+        _check_scans("dispatch_async " + mode, scans, 0 if mode == "silero" else len(handles))
+        return {"queued_s": queued, "done_s": done, "chunks": len(handles)}
+
+    out = {}
+    for mode in ("webrtc", "silero", "fused"):
+        dispatch(mode, "default")  # the warm-up makes the cached constants
+        out[mode] = dispatch(mode, "error")
+        log("  dispatch_async %s, 90 min in %d chunks, under sync-debug error: queued in "
+            "%.4f s, the card done at %.4f s" % (mode, out[mode]["chunks"],
+                                                out[mode]["queued_s"], out[mode]["done_s"]))
+    def pageable(pcm_i16, frame_rate, sample_rate, device):
+        framed, rate, window, n_windows = prepare_staged_input(pcm_i16, frame_rate, sample_rate)
+        return torch.from_numpy(framed).to(device), rate, window, n_windows
+
+    real = (vad.stage_to_device, vad._band_weights)
+    vad.stage_to_device = pageable
+    vad._band_weights = lambda device: torch.from_numpy(vad._BAND_WEIGHTS).to(device)
+    try:
+        blocking = [dispatch("fused", "default") for _ in range(3)]
+    finally:
+        vad.stage_to_device, vad._band_weights = real
+    sync_free = [dispatch("fused", "default") for _ in range(3)]
+    for name, runs in (("pageable copies, as before", blocking), ("pinned copies", sync_free)):
+        out["fused " + name] = {k: sorted(r[k] for r in runs)[1] for k in ("queued_s", "done_s")}
+        log("  dispatch_async fused with %s: queued in %s s, the card done at %s s (3 runs)"
+            % (name, ["%.4f" % r["queued_s"] for r in runs], ["%.4f" % r["done_s"] for r in runs]))
+    return out
+
+
 def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
     """The ``--measure`` phases (see the module docstring)."""
     import numpy as np
@@ -1964,8 +2339,8 @@ def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
             return out
         return wrapper
 
-    real = (vad.prepare_staged_input, vad._vad_program, sync.align_candidates)
-    vad.prepare_staged_input = timed("host staging", real[0])
+    real = (vad.stage_to_device, vad._vad_program, sync.align_candidates)
+    vad.stage_to_device = timed("host staging and copy", real[0])
     vad._vad_program = timed("VAD programs", real[1])
     sync.align_candidates = timed("alignment search", real[2])
     try:
@@ -1978,7 +2353,7 @@ def measure(workdir, wav_path, pcm, batch_jobs, runs=6):
                 "and rasterize, copies, logging) %.4f s"
                 % (label, wall, ", ".join("%s %.4f s" % kv for kv in spent.items()), rest))
     finally:
-        vad.prepare_staged_input, vad._vad_program, sync.align_candidates = real
+        vad.stage_to_device, vad._vad_program, sync.align_candidates = real
 
     # the share of one warm batch spent in the batched search
     spent.clear()
@@ -2053,6 +2428,11 @@ def main():
         chunk = chunk_check_and_time(dev, pcm)
         chunk_errs = chunk["errs"]
         results = main_path(workdir, wav_path)
+        for label in ("fused", "default"):
+            # the same pick as before the scan kernel: 7.34 s, to the window
+            if results[label][2] > 0.5 / SAMPLE_RATE:
+                fail("%s sync: offset %.3f s from the truth, not the same window"
+                     % (label, results[label][2]))
         agree = labels_card_vs_cpu(pcm)
         results["auditok"] = auditok_phase(workdir, wav_path, pcm, dev)
         results["multiseg"] = multiseg_phase(workdir, wav_path)
@@ -2084,6 +2464,12 @@ def main():
         results["profile"] = (diag["profile"]["launches"],)
         log("phase 15 (the stage diagnostics, --profile-dir) took %.1f s"
             % (time.perf_counter() - t15))
+        t16 = time.perf_counter()
+        scans = scan_phase(dev, pcm)
+        routes = vad_program_routes(dev, pcm)
+        dispatch = sync_free_dispatch(dev, pcm)
+        log("phase 16 (the scan kernel, the sync-free dispatch) took %.1f s"
+            % (time.perf_counter() - t16))
     log("phases done in %.1f s; 90-min sync walls: fused %.3f s, default %.3f s, "
         "auditok %.3f s, multi-segment %.3f s; batch of %d x %d min %.3f s; fused "
         "label agreement %.5f, auditok %.6f; sharded against monolithic labels: "
@@ -2188,7 +2574,37 @@ def main():
                 # diagnostics, each over its own process; "profile" the
                 # --profile-dir sync)
                 "path_launches": {label: r[0] for label, r in results.items()},
-            }
+            },
+            {
+                "name": "webrtc_scan",
+                "route": "cuda",
+                "source": "ffsubsync_tpu_torch/csrc/scan.cu",
+                "replaces": "ffsubsync_tpu/ops/vad.py:202",
+                # phase 4's fused sync: 8 scans per chunk
+                "launches": SCAN_PATH_LAUNCHES["fused"],
+                # over every scan at every path's shapes (phase 16): add
+                # and affine within SCAN_RTOL of max |plain|, min and max
+                # exact
+                "max_abs_err": max(p["max_abs_err"] for p in scans.values()),
+                "max_rel_err": max(p["max_rel_err"] for p in scans.values()),
+                # the detector's labels, kernel against plain route: windows
+                # a whole vote apart, at most SP_FLIPS of them
+                "flips": {label: p["flips"] for label, p in scans.items()},
+                # the 8 scans of one 45-minute chunk (CUDA events)
+                "ms": scans["fused"]["ms"],
+                "plain_ms": scans["fused"]["plain_ms"],
+                "bound_ms": scans["fused"]["bound_ms"],
+                "bound_by": scans["fused"]["bound_by"],
+                # torch.cumsum over the transposed [C, N] of the 7 scans
+                # that are no affine pair (that one has no library call)
+                "library_ms": scans["fused"]["library_ms"],
+                "by_path": scans,
+                "vad_program_ms": routes,
+                "dispatch": dispatch,
+                # launches of each path's own run (as the frontend's above;
+                # "sp" the one sharded call on 4 shards)
+                "path_launches": SCAN_PATH_LAUNCHES,
+            },
         ]
     }
     log(json.dumps(kernels))

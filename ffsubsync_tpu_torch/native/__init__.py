@@ -26,7 +26,7 @@ import platform
 import shutil
 import subprocess
 import threading
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -250,19 +250,40 @@ def decimate2(pcm: np.ndarray) -> np.ndarray:
     return np.clip(acc >> 15, -32768, 32767).astype(np.int16)
 
 
+def _output(out, shape, dtype) -> np.ndarray:
+    """``out`` checked to hold the result (C-contiguous, its shape and
+    dtype), or a new array when it is None."""
+    if out is None:
+        return np.empty(shape, dtype)
+    if out.shape != tuple(shape) or out.dtype != np.dtype(dtype) or not out.flags.c_contiguous:
+        raise ValueError("out must be a C-contiguous %s array of shape %r, got %s %r"
+                         % (np.dtype(dtype), tuple(shape), out.dtype, out.shape))
+    return out
+
+
+def _fill(out, result: np.ndarray) -> np.ndarray:
+    """``result``, copied into ``out`` where one is given."""
+    if out is None:
+        return result
+    np.copyto(_output(out, result.shape, result.dtype), result)
+    return out
+
+
 def stage_for_device(
-    pcm: np.ndarray, decim_stages: int, window: int, wpad: int, t_pad: int
+    pcm: np.ndarray, decim_stages: int, window: int, wpad: int, t_pad: int,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Half-band decimate ``decim_stages`` times, µ-law encode, and frame —
     all in one native pass over the raw PCM. Bit-exact vs composing
-    :func:`decimate2` then :func:`frame_for_device`."""
+    :func:`decimate2` then :func:`frame_for_device`. Writes into ``out``
+    (int8 ``[t_pad, wpad]``) where one is given."""
     pcm = np.asarray(pcm)
     if pcm.dtype != np.int16:
         pcm = pcm.astype(np.int16)
     pcm = np.ascontiguousarray(pcm)
     lib = _get_lib()
     if lib is not None:
-        out = np.empty((t_pad, wpad), np.int8)
+        out = _output(out, (t_pad, wpad), np.int8)
         lib.ffs_stage_i8(
             _ptr(pcm, ctypes.c_int16),
             len(pcm),
@@ -276,7 +297,7 @@ def stage_for_device(
     for _ in range(decim_stages):
         pcm = decimate2(pcm)
     # samples past t_pad windows are dropped, as the library drops them
-    return frame_for_device(pcm[: t_pad * window], window, wpad, t_pad, mulaw=True)
+    return frame_for_device(pcm[: t_pad * window], window, wpad, t_pad, mulaw=True, out=out)
 
 
 def mulaw6_encode_host(pcm_i16: np.ndarray) -> np.ndarray:
@@ -300,12 +321,14 @@ def pack6(codes_u8: np.ndarray) -> np.ndarray:
 
 
 def stage_for_device_p6(
-    pcm: np.ndarray, decim_stages: int, window: int, t_pad: int
+    pcm: np.ndarray, decim_stages: int, window: int, t_pad: int,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """6-bit µ-law wire staging: decimate + encode + pack + frame in one
     native pass → ``[t_pad, window*3//4]`` int8 (bit patterns; decoded in
-    the frontend kernel's load). Padding rows/tails hold the packed silence
-    pattern (biased code 31), never zero bytes."""
+    the frontend kernel's load), into ``out`` where one is given. Padding
+    rows/tails hold the packed silence pattern (biased code 31), never
+    zero bytes."""
     if window % 4 != 0:
         raise ValueError("mulaw6 wire needs window %% 4 == 0, got %d" % window)
     row_bytes = window * 3 // 4
@@ -315,7 +338,7 @@ def stage_for_device_p6(
     pcm = np.ascontiguousarray(pcm)
     lib = _get_lib()
     if lib is not None:
-        out = np.empty((t_pad, row_bytes), np.uint8)
+        out = _output(out, (t_pad, row_bytes), np.int8)
         lib.ffs_stage_p6(
             _ptr(pcm, ctypes.c_int16),
             len(pcm),
@@ -323,22 +346,24 @@ def stage_for_device_p6(
             window,
             row_bytes,
             t_pad,
-            _ptr(out, ctypes.c_uint8),
+            _ptr(out.view(np.uint8), ctypes.c_uint8),
         )
-        return out.view(np.int8)
+        return out
     for _ in range(decim_stages):
         pcm = decimate2(pcm)
     pcm = pcm[: t_pad * window]  # clamped to t_pad windows, as in the library
     codes = np.full(t_pad * window, 31, np.uint8)
     codes[: len(pcm)] = mulaw6_encode_host(pcm)
-    return pack6(codes.reshape(t_pad, window)).view(np.int8)
+    return _fill(out, pack6(codes.reshape(t_pad, window)).view(np.int8))
 
 
 def frame_for_device(
-    pcm: np.ndarray, window: int, wpad: int, t_pad: int, mulaw: bool
+    pcm: np.ndarray, window: int, wpad: int, t_pad: int, mulaw: bool,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Encode (µ-law, optionally) + frame PCM into the ``[t_pad, wpad]``
-    layout the frontend kernel reads, in one native pass."""
+    layout the frontend kernel reads, in one native pass, into ``out``
+    where one is given."""
     pcm = np.ascontiguousarray(pcm, dtype=np.int16)
     lib = _get_lib()
     if lib is None:
@@ -349,8 +374,8 @@ def frame_for_device(
         flat[: len(pcm)] = mulaw_encode_host(pcm) if mulaw else pcm
         framed = np.zeros((t_pad, wpad), dtype)
         framed[:, :window] = flat.reshape(t_pad, window)
-        return framed
-    out = np.empty((t_pad, wpad), np.int8 if mulaw else np.int16)
+        return _fill(out, framed)
+    out = _output(out, (t_pad, wpad), np.int8 if mulaw else np.int16)
     (lib.ffs_mulaw_frame_i8 if mulaw else lib.ffs_frame_i16)(
         _ptr(pcm, ctypes.c_int16),
         len(pcm),

@@ -11,7 +11,7 @@ explicit ``n_valid``, so labels of valid windows never depend on padding.
 """
 import math
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,12 +74,37 @@ def analysis_rate(frame_rate: int, sample_rate: int) -> int:
     return rate
 
 
+def _staging_plan(n_samples: int, frame_rate: int, sample_rate: int):
+    """(analysis rate, decimation stages, window, windows, wire, framed
+    shape, framed dtype) of staging ``n_samples`` of PCM."""
+    rate = analysis_rate(frame_rate, sample_rate)
+    decim_stages = 0
+    while frame_rate > rate:
+        decim_stages += 1
+        frame_rate //= 2
+    window = frames_per_window(frame_rate, sample_rate)
+    n_dec = n_samples
+    for _ in range(decim_stages):
+        n_dec = (n_dec + 1) // 2
+    n_windows = max(1, int(np.ceil(n_dec / float(window))))
+    wire = os.environ.get("FFS_TPU_WIRE", "mulaw")
+    if wire == "mulaw6" and window % 4 == 0:
+        shape, dtype = (n_windows, window * 3 // 4), np.int8
+    elif wire in ("mulaw", "mulaw6"):
+        wire, shape, dtype = "mulaw", (n_windows, window), np.int8
+    else:
+        shape, dtype = (n_windows, window), np.int16
+    return frame_rate, decim_stages, window, n_windows, wire, shape, dtype
+
+
 def prepare_staged_input(
-    pcm_i16: np.ndarray, frame_rate: int, sample_rate: int
+    pcm_i16: np.ndarray, frame_rate: int, sample_rate: int,
+    out: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, int, int, int]:
     """Host staging for the frontend: decimate to the analysis rate,
     wire-encode (``FFS_TPU_WIRE``: ``mulaw`` default, ``mulaw6``, ``i16``)
-    and frame, one native pass where the host library is built.
+    and frame, one native pass where the host library is built, into
+    ``out`` where one is given (of the shape and dtype the result has).
 
     Returns ``(framed [n_windows, width] np, analysis_rate, window,
     n_windows)``; the last window is zero-padded (wire silence).
@@ -87,26 +112,44 @@ def prepare_staged_input(
     from ffsubsync_tpu_torch import native
 
     pcm = np.asarray(pcm_i16)
-    rate = analysis_rate(frame_rate, sample_rate)
-    decim_stages = 0
-    while frame_rate > rate:
-        decim_stages += 1
-        frame_rate //= 2
-    window = frames_per_window(frame_rate, sample_rate)
-    n_dec = len(pcm)
-    for _ in range(decim_stages):
-        n_dec = (n_dec + 1) // 2
-    n_windows = max(1, int(np.ceil(n_dec / float(window))))
-    wire = os.environ.get("FFS_TPU_WIRE", "mulaw")
-    if wire == "mulaw6" and window % 4 == 0:
-        framed = native.stage_for_device_p6(pcm, decim_stages, window, n_windows)
-    elif wire in ("mulaw", "mulaw6"):
-        framed = native.stage_for_device(pcm, decim_stages, window, window, n_windows)
+    rate, decim_stages, window, n_windows, wire, _shape, _dtype = _staging_plan(
+        len(pcm), frame_rate, sample_rate
+    )
+    if wire == "mulaw6":
+        framed = native.stage_for_device_p6(pcm, decim_stages, window, n_windows, out=out)
+    elif wire == "mulaw":
+        framed = native.stage_for_device(pcm, decim_stages, window, window, n_windows, out=out)
     else:
         for _ in range(decim_stages):
             pcm = native.decimate2(pcm)
-        framed = native.frame_for_device(pcm, window, window, n_windows, mulaw=False)
-    return framed, frame_rate, window, n_windows
+        framed = native.frame_for_device(pcm, window, window, n_windows, mulaw=False, out=out)
+    return framed, rate, window, n_windows
+
+
+def stage_to_device(
+    pcm_i16: np.ndarray, frame_rate: int, sample_rate: int, device: torch.device
+) -> Tuple[torch.Tensor, int, int, int]:
+    """:func:`prepare_staged_input` with the framed array on ``device``.
+
+    For a CUDA device the host stages straight into page-locked memory
+    from the caching host allocator, and the copy is queued without
+    waiting for the device: a copy from pageable memory would first wait
+    for all work queued on the stream (PyTorch synchronizes after it), so
+    a pipeline could not stage the next chunk while the card runs this
+    one. The allocator keeps the block until the copy has run and then
+    hands it to the next chunk. Returns ``(framed tensor, analysis_rate,
+    window, n_windows)``.
+    """
+    if device.type != "cuda":
+        framed, rate, window, n_windows = prepare_staged_input(pcm_i16, frame_rate, sample_rate)
+        return torch.from_numpy(framed).to(device), rate, window, n_windows
+    *_plan, shape, dtype = _staging_plan(len(pcm_i16), frame_rate, sample_rate)
+    pinned = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                         pin_memory=True)
+    _framed, rate, window, n_windows = prepare_staged_input(
+        pcm_i16, frame_rate, sample_rate, out=pinned.numpy()
+    )
+    return pinned.to(device, non_blocking=True), rate, window, n_windows
 
 
 def compute_frontend(

@@ -11,12 +11,17 @@ history, neural context) is carried across chunks as device tensors, and
 the labels stay on the device (:class:`LazySpeechSignal`) until the
 aligner or a host consumer reads them.
 
-The webrtc-class recurrences are parallel scans, as in the reference: the
-running minimum, the prefix sums and the hangover's running max/min map to
-``torch.cummin``/``cumsum``/``cummax``; the affine EMA has no torch op and
-runs as a Hillis–Steele doubling scan (:func:`_affine_scan`). The TPU-only
-two-level ``_blocked_scan`` does not carry over. The tuning constants are
-the reference's; the rationale for each lives beside the originals.
+The webrtc-class recurrences are scans along the window axis, as in the
+reference (its two-level ``_blocked_scan``): the affine EMA, the running
+minimum of the noise floor, the prefix sums of the flux and modulation
+boxes and the hangover's running max and reverse running min. Each goes
+through :mod:`~ffsubsync_tpu_torch.ops.scan`: on the card one call of the
+hand-written kernel ``csrc/scan.cu`` (two levels of 4096-row tiles, the
+reference's), on the CPU the plain ``torch.cumsum``/``cummin``/``cummax``
+and a doubling scan for the EMA. The rest of the detector (the
+elementwise math, the spectral flux, the box gathers) is plain PyTorch on
+either device. The tuning constants are the reference's; the rationale
+for each lives beside the originals.
 
 ``--vad auditok`` (:func:`make_auditok_detector`) is the exception to the
 one-program rule, as in the reference: one frontend launch over the whole
@@ -38,10 +43,11 @@ from ffsubsync_tpu_torch.models.neural_vad import (
     NeuralVADNet,
     load_net,
 )
+from ffsubsync_tpu_torch.ops import scan
 from ffsubsync_tpu_torch.ops.features import (
     analysis_rate,
     compute_frontend,
-    prepare_staged_input,
+    stage_to_device,
 )
 from ffsubsync_tpu_torch.ops.frontend import fused_frontend
 
@@ -88,20 +94,8 @@ def _pcm_bytes_to_i16(chunk) -> np.ndarray:
     return np.frombuffer(chunk, np.int16)
 
 
-def _affine_scan(a: torch.Tensor, b: torch.Tensor):
-    """Inclusive scan along dim 0 of the affine maps ``y -> a*y + b``
-    (Hillis–Steele doubling: log2(T) elementwise passes). Composing the
-    earlier map (a1, b1) with the later (a2, b2) gives (a1·a2, a2·b1 + b2);
-    identity rows (a=1, b=0) pass a prefix through unchanged."""
-    t = a.shape[0]
-    shift = 1
-    while shift < t:
-        a, b = (
-            torch.cat([a[:shift], a[shift:] * a[:-shift]]),
-            torch.cat([b[:shift], a[shift:] * b[:-shift] + b[shift:]]),
-        )
-        shift *= 2
-    return a, b
+# the EMA's plain doubling scan, under this module's earlier name
+_affine_scan = scan.affine_scan_plain
 
 
 @functools.lru_cache(maxsize=16)
@@ -148,7 +142,7 @@ def _prefix_pairs(values, counts):
     """[N+1, 2] prefix sums of (values, counts) with a leading zero row."""
     pairs = torch.stack([values, counts], dim=1)
     zero = torch.zeros((1, 2), dtype=pairs.dtype, device=pairs.device)
-    return torch.cat([zero, torch.cumsum(pairs, dim=0)], dim=0)
+    return torch.cat([zero, scan.scan_cols(pairs, "add")], dim=0)
 
 
 def _webrtc_from_bands(bands, logmel, n_valid, ema_in, noise_in, prev_p_in,
@@ -176,13 +170,13 @@ def _webrtc_from_bands(bands, logmel, n_valid, ema_in, noise_in, prev_p_in,
         valid, torch.full_like(e, 1.0 - _ENERGY_EMA_ALPHA), torch.ones_like(e)
     )
     coef_b = torch.where(valid, _ENERGY_EMA_ALPHA * e, torch.zeros_like(e))
-    big_a, big_b = _affine_scan(coef_a, coef_b)
+    big_a, big_b = scan.affine_scan(coef_a, coef_b)
     ema_seq = big_a * carry0[None, :] + big_b  # [T, B]
     ln_ema = torch.log(ema_seq)
     lng = float(np.float32(np.log(_NOISE_FLOOR_GROWTH)))
     tt = t_idx.to(f32)[:, None] * lng
     inf = torch.full_like(ln_ema, float("inf"))
-    cummin = torch.cummin(torch.where(valid, ln_ema - tt, inf), dim=0).values
+    cummin = scan.scan_cols(torch.where(valid, ln_ema - tt, inf), "min")
     ln_noise = torch.minimum(tt + cummin, torch.log(noise_in)[None, :] + tt + lng)
     snr_db = _DB_PER_LN * (ln_ema - ln_noise)
     score = (snr_db @ _band_weights(dev)) / float(_BAND_WEIGHTS.sum())
@@ -197,7 +191,7 @@ def _webrtc_from_bands(bands, logmel, n_valid, ema_in, noise_in, prev_p_in,
     ind = torch.stack([(moving & active).to(f32), active.to(f32)], dim=1)
     ind_ext = torch.cat([prev_m_in, ind], dim=0)  # [K + T, 2]
     zero = torch.zeros((1, 2), dtype=f32, device=dev)
-    s_pad = torch.cat([zero, torch.cumsum(ind_ext, dim=0)], dim=0)
+    s_pad = torch.cat([zero, scan.scan_cols(ind_ext, "add")], dim=0)
     # box edges in ind_ext coordinates (window t sits at t + K)
     lo = torch.clamp(t_idx, min=k - prev_m_len)
     hi = torch.clamp(t_idx + 2 * k, max=k + n_valid - 1)
@@ -238,17 +232,11 @@ def _webrtc_from_bands(bands, logmel, n_valid, ema_in, noise_in, prev_p_in,
         & (sylmod > _SYL_MOD_THRESHOLD)
         & (fastmod <= _FAST_MOD_MAX)
     )
+    # the reference's int32 sentinels: no raw vote before / after
     far = 1 << 30
-    last = torch.cummax(
-        torch.where(raw, t_idx, torch.full_like(t_idx, -far)), dim=0
-    ).values
-    nxt = torch.flip(
-        torch.cummin(
-            torch.flip(torch.where(raw, t_idx, torch.full_like(t_idx, far)), [0]),
-            dim=0,
-        ).values,
-        [0],
-    )
+    t32 = t_idx.to(torch.int32)
+    last = scan.scan_cols(torch.where(raw, t32, -far), "max")
+    nxt = scan.scan_cols(torch.where(raw, t32, far), "min", reverse=True)
     # the standalone stream adds the half-weight pre-hangover; the fusion
     # stream keeps the trailing-only hangover (reference docstring)
     speech_fuse = t_idx - last < _HANGOVER_WINDOWS
@@ -446,11 +434,11 @@ def _make_onelaunch_detector(
         net = load_net(analysis_rate(frame_rate, sample_rate), device)
 
     def _dispatch(pcm):
-        framed, rate, window, n_windows = prepare_staged_input(
-            pcm, frame_rate, sample_rate
+        framed, rate, window, n_windows = stage_to_device(
+            pcm, frame_rate, sample_rate, device
         )
         labels, state["s"] = _vad_program(
-            host_to_device(framed, device), window, rate, n_windows,
+            framed, window, rate, n_windows,
             state["s"], net, non_speech_label, mode,
         )
         return labels, n_windows

@@ -35,6 +35,7 @@ import torch
 
 from ffsubsync_tpu_torch.device import host_to_device, local_mesh
 from ffsubsync_tpu_torch.models.neural_vad import CONTEXT, load_net
+from ffsubsync_tpu_torch.ops import scan
 from ffsubsync_tpu_torch.ops import vad as V
 from ffsubsync_tpu_torch.ops.features import analysis_rate, prepare_staged_input
 from ffsubsync_tpu_torch.ops.frontend import fused_frontend, wire_silence_rows
@@ -118,7 +119,7 @@ def _sharded_webrtc(bands, logmel, t_global, valid, n_valid: int, mode: str,
     e0 = [e[0][0].to(dev) for dev in devs]
     alpha = V._ENERGY_EMA_ALPHA
     loc = [
-        V._affine_scan(
+        scan.affine_scan(
             torch.where(v, torch.full_like(x, 1.0 - alpha), torch.ones_like(x)),
             torch.where(v, alpha * x, torch.zeros_like(x)),
         )
@@ -136,7 +137,7 @@ def _sharded_webrtc(bands, logmel, t_global, valid, n_valid: int, mode: str,
     lng = float(np.float32(np.log(V._NOISE_FLOOR_GROWTH)))
     tt = [t.to(f32)[:, None] * lng for t in t_global]
     loc_min = [
-        torch.cummin(torch.where(v, le - t, float("inf")), dim=0).values
+        scan.scan_cols(torch.where(v, le - t, float("inf")), "min")
         for le, t, v in zip(ln_ema, tt, valid)
     ]
     pref_min = _exclusive_prefix(
@@ -174,7 +175,7 @@ def _sharded_webrtc(bands, logmel, t_global, valid, n_valid: int, mode: str,
     ]
     frac = []
     for ie, t in zip(ind_ext, t_global):
-        s_pad = torch.cat([torch.zeros_like(ie[:1]), torch.cumsum(ie, dim=0)], dim=0)
+        s_pad = torch.cat([torch.zeros_like(ie[:1]), scan.scan_cols(ie, "add")], dim=0)
         e_idx = torch.arange(k, t_loc + k, device=t.device)  # ext rows of the shard's windows
         lo = e_idx - torch.clamp(t, max=k)
         hi = torch.clamp(e_idx + torch.clamp(n_valid - 1 - t, max=k), 0, t_loc + 2 * k - 1)
@@ -228,16 +229,13 @@ def _sharded_webrtc(bands, logmel, t_global, valid, n_valid: int, mode: str,
     # hangover: the last raw vote at or before each window (running max of
     # marked global indices) and the next one at or after it (reverse
     # running min)
+    # int32, as the kernel and the reference scan them
     loc_last = [
-        torch.cummax(torch.where(raw, t, torch.full_like(t, -_FAR)), dim=0).values
+        scan.scan_cols(torch.where(raw, t.to(torch.int32), -_FAR), "max")
         for raw, t in zip(raws, t_global)
     ]
     loc_next = [
-        torch.flip(
-            torch.cummin(torch.flip(torch.where(raw, t, torch.full_like(t, _FAR)), [0]), dim=0)
-            .values,
-            [0],
-        )
+        scan.scan_cols(torch.where(raw, t.to(torch.int32), _FAR), "min", reverse=True)
         for raw, t in zip(raws, t_global)
     ]
     pref_last = _exclusive_prefix(

@@ -160,6 +160,33 @@ def test_staging_matches_reference_and_numpy_copy(monkeypatch, wire):
     np.testing.assert_array_equal(framed_np, framed)
 
 
+@pytest.mark.parametrize("native_lib", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("wire", ["i16", "mulaw", "mulaw6"])
+def test_staging_into_a_given_array(monkeypatch, wire, native_lib):
+    """Staged into the caller's array (on the card's path, a reused block
+    of page-locked memory holding an earlier chunk's bytes) the bytes are
+    those of a fresh staging, whose shape and dtype the staging plan
+    names; an array of another shape raises; on the CPU
+    ``stage_to_device`` is the staging as a tensor."""
+    monkeypatch.setenv("FFS_TPU_WIRE", wire)
+    if not native_lib:
+        monkeypatch.setattr(native, "_lib", None)
+    pcm = _random_pcm(48000 * 3 + 1234, seed=13)
+    want, rate, window, n_windows = tfeat.prepare_staged_input(pcm, 48000, 100)
+    *_plan, shape, dtype = tfeat._staging_plan(len(pcm), 48000, 100)
+    assert (tuple(shape), np.dtype(dtype)) == (want.shape, want.dtype)
+    out = np.full(shape, 77, dtype)
+    got, *_ = tfeat.prepare_staged_input(pcm, 48000, 100, out=out)
+    assert got is out
+    np.testing.assert_array_equal(out, want)
+    with pytest.raises(ValueError, match="out must be"):
+        tfeat.prepare_staged_input(pcm, 48000, 100,
+                                   out=np.empty((shape[0] + 1, shape[1]), dtype))
+    x, *rest = tfeat.stage_to_device(pcm, 48000, 100, torch.device("cpu"))
+    assert tuple(rest) == (rate, window, n_windows)
+    np.testing.assert_array_equal(x.numpy(), want)
+
+
 def test_compute_frontend_matches_reference(monkeypatch):
     monkeypatch.setenv("FFS_TPU_DISABLE_PALLAS", "1")
     pcm = _random_pcm(48000 * 2 + 777, seed=12)
