@@ -20,9 +20,9 @@
 // What bounds it. Each scan reads its input once and writes its output
 // once; per 45-minute chunk (270,000 windows) the detector's eight scans
 // move about 60 MB, 18 us at 3.35 TB/s, and do one or three float
-// operations per element. So bytes bound it, far below anything the
-// detector's host issue can reach; the design aims at a short, correct
-// launch sequence, not at the byte bound.
+// operations per element. So bytes bound it, far below the time the host
+// takes to launch the rest of the detector; the design aims at a short,
+// correct launch sequence, not at the byte bound.
 //
 // Design. A block cannot hand a carry to the next (blocks run in no order),
 // so the scan takes two levels, those of the reference's _blocked_scan:
