@@ -119,16 +119,20 @@ needs no network and no jax. Phases, each fatal on failure:
     within 0.15 s of the truth; the kernel held against its plain version
     at diag_chunks' 600-s chunk ``[60000, 120]`` and timed beside its
     bound; and phase 4's fused sync with ``--profile-dir``, whose
-    ``trace.json`` must hold one frontend kernel event per launch and the
-    scan kernel's events;
+    ``trace.json`` must hold one frontend kernel event per launch and one
+    scan kernel event per scan, 16 in all;
 16. the scan kernel of the webrtc-class detector (``csrc/scan.cu``):
     the detector's program at each path's own shapes (a 45-minute chunk,
     the whole 90 minutes as one chunk, a 44-minute episode, a 60 s
     segment, and the sharded program on 4 shards of ``cuda:0``) by the
     kernel and by the plain version, the labels under the SP bounds, the
     carried state within ``SCAN_STATE_RTOL`` and every scan held against
-    its plain version (``_scan_errors``), timed beside plain, one
-    ``torch.cumsum`` per scan over the transposed layout and the bound;
+    its plain version (``_scan_errors``) and, bit for bit, against the
+    kernel's former three-launch design (``scan.two_level_scan``) and
+    against itself over three runs; timed (CUDA events) beside the former
+    design, plain, one ``torch.cumsum`` per scan over the transposed layout
+    and the bound, with the card microseconds of both designs from a
+    ``torch.profiler`` window and the host's issue time;
     one ``_vad_program`` per mode on a 45-minute chunk with its scans by
     the kernel and by the plain version, in turns; and ``dispatch_async``
     of the 90 minutes for webrtc, silero and fused under
@@ -276,6 +280,10 @@ SCANS_PER_PROGRAM = 8  # the detector's scans per chunk (or per shard)
 # within SCAN_STATE_RTOL (tests/test_torch_webrtc.py's)
 SCAN_RTOL, SCAN_STATE_RTOL = 1e-3, 1e-4
 SCAN_PATH_LAUNCHES = {}  # scan-kernel launches of each driven path
+# the scan kernel's name in a trace, and its former design's kernels
+SCAN_KERNEL, SCAN_KERNELS_BEFORE = "scan_one_pass", ("scan_tiles", "scan_totals")
+SCAN_RUNS = 3  # the recorded scans run this often by the kernel: the same bits each time
+PROFILED_RUNS = 5  # runs of a path's scans in the torch.profiler window
 VAD_MODES = ("webrtc", "silero", "weighted")  # the _vad_program timings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -317,15 +325,16 @@ def build():
     result = _build.build_library()
     log("build: %.2f s -> %s" % (result.seconds, os.path.relpath(result.path)))
     # one line per kernel instantiation: frontend_kernel<rows, warp
-    # columns, resident basis> or scan_tiles<op, pass> and scan_totals<op>,
-    # its registers and spilled bytes
+    # columns, resident basis>, scan_one_pass<op, columns> or
+    # the former design's scan_tiles<op, pass> and scan_totals<op>, its
+    # registers and spilled bytes
     ptxas, name, spills = [], "?", 0
     for line in result.log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             args = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", entry.group(1))
-            scan_op = re.search(r"(scan_tiles|scan_totals)I\w*?(AddF32|MinF32|MaxF32|MinI32|"
-                                r"MaxI32|AffineF32)E(?:Li(\d)E)?", entry.group(1))
+            scan_op = re.search(r"(scan_one_pass|scan_tiles|scan_totals)I\w*?(AddF32|MinF32|"
+                                r"MaxF32|MinI32|MaxI32|AffineF32)E(?:Li(\d)E)?", entry.group(1))
             if args:
                 name = "frontend_kernel<%s,%s,%s>" % args.groups()
             elif scan_op:
@@ -1903,8 +1912,9 @@ def profiled_sync(workdir, wav_path):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     frontend = [e for e in kernels if "frontend_kernel" in e.get("name", "")]
     names = sorted({e["name"] for e in frontend})
-    # the scan kernel: scan_tiles (one or two per call) and scan_totals
-    scans = [e for e in kernels if "scan_t" in e.get("name", "")]
+    # the scan kernel, one event per scan; none of its former design
+    scans = [e for e in kernels if SCAN_KERNEL in e.get("name", "")]
+    former = [e for e in kernels if any(k in e.get("name", "") for k in SCAN_KERNELS_BEFORE)]
     out = {"launches": ins.launches, "wall": wall, "trace_mb": os.path.getsize(path) / 1e6,
            "kernel_events": len(kernels), "frontend_events": len(frontend),
            "frontend_us": [e.get("dur") for e in frontend], "names": names,
@@ -1922,9 +1932,10 @@ def profiled_sync(workdir, wav_path):
              % (len(frontend), ins.launches))
     log("  the scan kernel in the trace: %d events (%d scan calls), %.1f card us in all"
         % (len(scans), ins.scan_launches, out["scan_us"]))
-    if ins.scan_launches == 0 or len(scans) < ins.scan_launches:
-        fail("--profile-dir: %d scan kernel events for %d scan calls"
-             % (len(scans), ins.scan_launches))
+    want = SCANS_PER_PROGRAM * 2  # two 45-min chunks
+    if ins.scan_launches != want or len(scans) != want or former:
+        fail("--profile-dir: %d scan kernel events (and %d of the former design) for %d scan "
+             "calls; want %d of each" % (len(scans), len(former), ins.scan_launches, want))
     return out
 
 
@@ -2039,6 +2050,8 @@ def _run_scan(call, plain):
     from ffsubsync_tpu_torch.ops import scan
 
     key, xs, reverse = call
+    if plain == "two_level":  # the kernel's former design (a yardstick)
+        return scan.two_level_scan(xs, key.split("_")[0], reverse)
     if key == "affine":
         return (scan.affine_scan_plain if plain else scan.affine_scan)(*xs)
     cols = scan.scan_cols_plain if plain else scan.scan_cols
@@ -2104,6 +2117,104 @@ def _scan_errors(calls, what):
     return worst
 
 
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(got, want):
+    import torch
+
+    return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+               for g, w in zip(got, want))
+
+
+def _scan_bits(calls, what):
+    """Every recorded scan by the kernel SCAN_RUNS times and once by its
+    former design (``scan.two_level_scan``): the same bits every time,
+    floats included (the one-pass kernel reads the tile totals in the
+    former design's order)."""
+    for call in calls:
+        runs = [_run_scan(call, False) for _ in range(SCAN_RUNS)]
+        if not all(_same_bits(r, runs[0]) for r in runs[1:]):
+            fail("%s, %s scan of %r: the kernel's %d runs differ"
+                 % (what, call[0], tuple(call[1][0].shape), SCAN_RUNS))
+        if not _same_bits(runs[0], _run_scan(call, "two_level")):
+            fail("%s, %s scan of %r: the kernel's bits differ from its former design's"
+                 % (what, call[0], tuple(call[1][0].shape)))
+
+
+_SCAN_OPS = {("add", "float32"): "AddF32", ("min", "float32"): "MinF32",
+             ("max", "float32"): "MaxF32", ("min", "int32"): "MinI32",
+             ("max", "int32"): "MaxI32", ("affine", "float32"): "AffineF32"}
+
+
+def scan_kernels(calls, former):
+    """The kernel launches the recorded scans make, by name and grid as the
+    trace names them: one scan_one_pass per scan; in the former design
+    scan_tiles<op, 0>, scan_totals<op> and scan_tiles<op, 1> per scan over
+    more than one tile, scan_tiles<op, 1> alone for one tile."""
+    from ffsubsync_tpu_torch.ops import scan
+
+    out = []
+    for key, xs, _rev in calls:
+        x = xs[0]
+        op = _SCAN_OPS[(key.split("_")[0], str(x.dtype).replace("torch.", ""))]
+        c = 1 if x.dim() == 1 else x.shape[1]
+        tiles = -(-x.shape[0] // scan.TILE_ROWS)
+        if not former:
+            out.append("scan_one_pass<%s, %d> grid %d" % (op, c, tiles))
+        elif tiles > 1:
+            out += ["scan_tiles<%s, 0> grid %d" % (op, tiles), "scan_totals<%s> grid 1" % op,
+                    "scan_tiles<%s, 1> grid %d" % (op, tiles)]
+        else:
+            out.append("scan_tiles<%s, 1> grid 1" % op)
+    return out
+
+
+def scan_card_us(fn, calls, former, what):
+    """Card microseconds of one ``fn()`` (the recorded scans, by the kernel
+    or its former design) from a ``torch.profiler`` window: one warm-up
+    step, then PROFILED_RUNS steps recorded. Each launch ``scan_kernels``
+    names counts at the mean duration of its kernel and grid in the trace,
+    which may drop events (on one H100 up to 36 of 120 in a window; every
+    kernel and grid kept some). Fails on a scan kernel the launches do not
+    name or one they name that left no event. Returns (microseconds per
+    step, events recorded, events launched, {kernel and grid: [mean us,
+    launches per step]})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = SCAN_KERNELS_BEFORE if former else (SCAN_KERNEL,)
+    with tempfile.TemporaryDirectory(prefix="ffs_scan_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=PROFILED_RUNS, repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            for _ in range(1 + PROFILED_RUNS):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    by_kind = {}
+    for e in events:
+        if e.get("cat") == "kernel" and any(n in e.get("name", "") for n in names):
+            name = re.sub(r"\(anonymous namespace\)::|void |\(.*$", "", e["name"])
+            key = "%s grid %s" % (name, (e.get("args", {}).get("grid") or ["?"])[0])
+            by_kind.setdefault(key, []).append(e.get("dur", 0))
+    launched = scan_kernels(calls, former)
+    missing = sorted(set(launched) - set(by_kind))
+    unknown = sorted(set(by_kind) - set(launched))
+    if missing or unknown:
+        fail("%s: the trace's scan kernels %s; launched %s (no event of %s; %s not launched)"
+             % (what, sorted(by_kind), sorted(set(launched)), missing, unknown))
+    kinds = {k: [sum(v) / len(v), launched.count(k)] for k, v in sorted(by_kind.items())}
+    return (sum(us * n for us, n in kinds.values()), sum(len(v) for v in by_kind.values()),
+            len(launched) * PROFILED_RUNS, kinds)
+
+
 def _scan_path(label, run, programs):
     """Phase 16 at one path's shapes. ``run()`` drives the path's detector
     program(s) on the card and returns (webrtc labels, carried state or
@@ -2136,27 +2247,51 @@ def _scan_path(label, run, programs):
         if not torch.allclose(g, w, rtol=SCAN_STATE_RTOL, atol=0.0):
             fail("%s: carried %s beyond rtol %g" % (label, name, SCAN_STATE_RTOL))
     errs = _scan_errors(calls, label)
+    _scan_bits(calls, label)
     lib_inputs = [xs[0].reshape(xs[0].shape[0], -1).T.contiguous()
                   for key, xs, _rev in calls if key != "affine"]
-    times = {"kernel": [], "plain": [], "library": []}
+    times = {"kernel": [], "old": [], "plain": [], "library": []}
     fns = {"kernel": lambda: [_run_scan(c, False) for c in calls],
+           "old": lambda: [_run_scan(c, "two_level") for c in calls],
            "plain": lambda: [_run_scan(c, True) for c in calls],
            # torch.cumsum along the innermost dim of each non-affine scan's
            # transposed, contiguous [C, N] (never called by the port)
            "library": lambda: [torch.cumsum(t, dim=-1, dtype=t.dtype) for t in lib_inputs]}
-    for route in ("plain", "kernel", "library", "library", "kernel", "plain"):
+    for route in ("plain", "old", "kernel", "library", "library", "kernel", "old", "plain"):
         times[route].append(median_ms(fns[route]))
     best = {k: min(v) for k, v in times.items()}
+    card_us, recorded, expected, kinds = scan_card_us(fns["kernel"], calls, False, label)
+    old_card_us, old_recorded, old_expected, old_kinds = scan_card_us(
+        fns["old"], calls, True, label + ", former design")
+    log("  %s: card us per event and launches per pass by kernel and grid (%d of %d and %d of "
+        "%d events recorded in %d passes): %s; former design: %s"
+        % (label, recorded, expected, old_recorded, old_expected, PROFILED_RUNS,
+           json.dumps(kinds), json.dumps(old_kinds)))
+    host = {route: host_ms(fns[route]) for route in ("kernel", "old")}
     bounds = scan_bounds(calls)
     shapes = sorted({"%s %r %s" % (key, tuple(xs[0].shape), str(xs[0].dtype).replace("torch.", ""))
                      for key, xs, _rev in calls})
     out = {"launches": len(calls), "ms": best["kernel"], "plain_ms": best["plain"],
-           "library_ms": best["library"], "bound_ms": max(bounds["bytes_ms"], bounds["ops_ms"]),
+           "library_ms": best["library"], "old_ms": best["old"], "card_us": card_us,
+           "old_card_us": old_card_us, "events_recorded": [recorded, expected],
+           "old_events_recorded": [old_recorded, old_expected], "card_us_by_kernel": kinds,
+           "old_card_us_by_kernel": old_kinds, "host_ms": host["kernel"],
+           "old_host_ms": host["old"], "bound_ms": max(bounds["bytes_ms"], bounds["ops_ms"]),
            "bound_by": "bytes" if bounds["bytes_ms"] >= bounds["ops_ms"] else "operations",
            "mbytes": bounds["mbytes"], "max_abs_err": errs["abs"], "max_rel_err": errs["rel"],
            "kernel_f64_rel": errs["kernel_f64"], "plain_f64_rel": errs["plain_f64"],
            "flips": flips, "labels_max_diff_others": rest, "state_max_rel": state_rel,
            "shapes": shapes}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["card_bound_share"] = out["bound_ms"] * 1e3 / card_us
+    log("  %s: bit for bit against the former design and over %d runs; card us from "
+        "torch.profiler (%d runs): kernel %.1f (%d launches), former design %.1f (%d launches); "
+        "host issue per pass: kernel %.4f ms, former design %.4f ms; CUDA events: kernel "
+        "%.4f ms, former design %.4f ms; bound share %.4f (events), %.4f (card us)"
+        % (label, SCAN_RUNS, PROFILED_RUNS, card_us, len(calls),
+           old_card_us, len(scan_kernels(calls, True)),
+           host["kernel"], host["old"], best["kernel"], best["old"], out["bound_share"],
+           out["card_bound_share"]))
     log("  %s: %d scans (%s); kernel %.4f ms, plain %.4f ms, torch.cumsum of the %d "
         "non-affine ones %.4f ms (medians of 15, best of 2 turns: %s); bound %.4f ms by %s "
         "(%.1f MB at 3.35 TB/s; operations %.4f ms); max |kernel - plain| %.4g (%.3g of "
@@ -2598,6 +2733,13 @@ def main():
                 # torch.cumsum over the transposed [C, N] of the 7 scans
                 # that are no affine pair (that one has no library call)
                 "library_ms": scans["fused"]["library_ms"],
+                # the same 8 scans: card microseconds from torch.profiler,
+                # the host's issue, and the former three-launch design's
+                # time and card microseconds in the same turns
+                "card_us": scans["fused"]["card_us"],
+                "host_ms": scans["fused"]["host_ms"],
+                "old_ms": scans["fused"]["old_ms"],
+                "old_card_us": scans["fused"]["old_card_us"],
                 "by_path": scans,
                 "vad_program_ms": routes,
                 "dispatch": dispatch,

@@ -133,8 +133,13 @@ def _load() -> ctypes.CDLL:
     lib.ffs_frontend_launch.restype = i32
     lib.ffs_frontend_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.ffs_frontend_config.restype = i32
-    lib.ffs_scan_launch.argtypes = [i32, i32, ctypes.c_longlong, i32] + [ptr] * 7
+    i64 = ctypes.c_longlong
+    lib.ffs_scan_launch.argtypes = [i32, i32, i32, i64, i32] + [ptr] * 5 + [i32, i32, ptr]
     lib.ffs_scan_launch.restype = i32
+    lib.ffs_scan_launch_two_level.argtypes = [i32, i32, i32, i64, i32] + [ptr] * 7
+    lib.ffs_scan_launch_two_level.restype = i32
+    lib.ffs_scan_workspace_words.argtypes = [i32]
+    lib.ffs_scan_workspace_words.restype = i64
     lib.ffs_scan_tile_rows.argtypes = []
     lib.ffs_scan_tile_rows.restype = i32
     lib.ffs_cuda_error_string.argtypes = [i32]

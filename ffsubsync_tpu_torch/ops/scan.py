@@ -10,12 +10,16 @@ running min (:func:`scan_cols`). In the reference each is a call of
 ``ffsubsync_tpu/ops/vad.py::_blocked_scan``, the two-level associative
 scan of 4096-row blocks.
 
-A CUDA tensor launches the hand-written kernel of ``csrc/scan.cu``, whose
-tiles are those 4096-row blocks (counted in :data:`launches`, one per
-wrapper call); a CPU tensor runs the plain version
+A CUDA tensor launches the hand-written kernel of ``csrc/scan.cu``: one
+launch per wrapper call (counted in :data:`launches`), one block per
+4096-row tile (the reference's blocks), each block combining its tile's
+local scan with the totals of the tiles before it, read in a fixed order so
+that every run gives the same bits. A CPU tensor runs the plain version
 (:func:`scan_cols_plain`, :func:`affine_scan_plain`: ``torch.cumsum``,
 ``cummin``, ``cummax`` and a doubling scan). There is no fallback between
 the two: a CUDA tensor gets the kernel or an exception.
+:func:`two_level_scan` runs the kernel's former three-launch design, a
+yardstick that the port never calls.
 """
 import threading
 from typing import Tuple
@@ -23,6 +27,7 @@ from typing import Tuple
 import torch
 
 TILE_ROWS = 4096  # csrc/scan.cu's kTile, the reference's _SCAN_BLOCK
+WIDTHS = (1, 2, 6)  # the C of an [N, C] that csrc/scan.cu scans (the detector's)
 
 # csrc/scan.cu's enum OpCode, by (op, dtype)
 _OPS = {
@@ -75,30 +80,59 @@ def _check(lib, status: int) -> None:
                            % (lib.ffs_cuda_error_string(status).decode(), status))
 
 
+class _Workspace:
+    """One stream's scratch of the kernel (the tile counter, the published
+    tile totals, each stamped with its launch's epoch), zeroed once;
+    ``epoch`` numbers its launches."""
+
+    __slots__ = ("buf", "cap_tiles", "epoch")
+
+    def __init__(self, lib, device, cap_tiles):
+        self.buf = torch.zeros(lib.ffs_scan_workspace_words(cap_tiles), dtype=torch.int32,
+                               device=device)
+        self.cap_tiles, self.epoch = cap_tiles, 0
+
+
+# (device index, stream) -> _Workspace; grown when a longer scan arrives,
+# made anew before its epoch would overflow int32
+_WORKSPACES = {}
+
+
+def _next_launch(lib, device, stream: int, n_tiles: int):
+    """The workspace of ``stream`` for ``n_tiles`` tiles and a fresh epoch,
+    under :data:`_LAUNCHES_LOCK`: every launch on a workspace has its own
+    epoch, whichever thread asks first. The caller holds the workspace
+    until its launch is queued: a workspace replaced by a larger one is
+    freed to the stream's cache only then."""
+    with _LAUNCHES_LOCK:
+        ws = _WORKSPACES.get((device.index, stream))
+        if ws is None or ws.cap_tiles < n_tiles or ws.epoch >= 2 ** 31 - 1:
+            cap = max(n_tiles, 2 * ws.cap_tiles if ws is not None else 256)
+            ws = _WORKSPACES[(device.index, stream)] = _Workspace(lib, device, cap)
+        ws.epoch += 1
+        return ws, ws.epoch
+
+
+def _shape(x):
+    return x.shape[0], 1 if x.dim() == 1 else x.shape[1]
+
+
+def _ptrs(ts):
+    return ([t.data_ptr() for t in ts] + [None, None])[:2]
+
+
 def _launch(code: int, reverse: bool, xs, ys) -> None:
-    """One kernel call: ``xs`` and ``ys`` are one or two contiguous
+    """One kernel launch: ``xs`` and ``ys`` are one or two contiguous
     ``[N, C]`` (or ``[N]``) tensors on one CUDA device."""
     from ffsubsync_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    x = xs[0]
-    n = x.shape[0]
-    c = 1 if x.dim() == 1 else x.shape[1]
-    dev = x.device
-    n_tiles = -(-n // TILE_ROWS)
-    # scratch for the tile totals; one tile needs none
-    totals = ([torch.empty((n_tiles, c), dtype=x.dtype, device=dev) for _ in xs]
-              if n_tiles > 1 else [])
-
-    def ptrs(ts):
-        return ([t.data_ptr() for t in ts] + [None, None])[:2]
-
-    with torch.cuda.device(dev):
-        status = lib.ffs_scan_launch(
-            code, int(reverse), n, c, *ptrs(xs), *ptrs(ys), *ptrs(totals),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _check(lib, status)
+    n, c = _shape(xs[0])
+    dev = xs[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws, epoch = _next_launch(lib, dev, stream, -(-n // TILE_ROWS))
+    _check(lib, lib.ffs_scan_launch(dev.index, code, int(reverse), n, c, *_ptrs(xs), *_ptrs(ys),
+                                    ws.buf.data_ptr(), ws.cap_tiles, epoch, stream))
     global launches
     with _LAUNCHES_LOCK:
         launches += 1
@@ -109,6 +143,9 @@ def _cuda_input(x: torch.Tensor, what: str) -> torch.Tensor:
         raise ValueError("%s: unsupported device %s" % (what, x.device))
     if x.dim() not in (1, 2):
         raise ValueError("%s: want [N] or [N, C], got shape %r" % (what, tuple(x.shape)))
+    if x.dim() == 2 and x.shape[1] not in WIDTHS:
+        raise ValueError("%s: the kernel scans %s columns, got %d"
+                         % (what, " or ".join(map(str, WIDTHS)), x.shape[1]))
     return x.contiguous()
 
 
@@ -148,3 +185,30 @@ def affine_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     if a.shape[0]:
         _launch(_AFFINE, False, [a, b], [out_a, out_b])
     return out_a, out_b
+
+
+def two_level_scan(xs, op: str, reverse: bool = False):
+    """The kernel's former design on CUDA tensors, kept as a yardstick
+    (``chip_smoke.py`` and the ``cuda`` tests hold the one-pass kernel
+    against it bit for bit and time the two; the port never calls it, and
+    it counts no launch): three launches per scan (the tile totals, their
+    scan on one block, every tile scanned again with its prefix) and
+    scratch for the totals per call. ``xs`` is ``(x,)`` for ``op`` "add",
+    "min" or "max", or the pair ``(a, b)`` for "affine"; returns a tuple of
+    outputs."""
+    from ffsubsync_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    code = _AFFINE if op == "affine" else _OPS[(op, xs[0].dtype)]
+    xs = [_cuda_input(x, "two_level_scan") for x in xs]
+    ys = [torch.empty_like(x) for x in xs]
+    n, c = _shape(xs[0])
+    if n:
+        dev = xs[0].device
+        n_tiles = -(-n // TILE_ROWS)
+        totals = ([torch.empty((n_tiles, c), dtype=x.dtype, device=dev) for x in xs]
+                  if n_tiles > 1 else [])
+        _check(lib, lib.ffs_scan_launch_two_level(
+            dev.index, code, int(reverse), n, c, *_ptrs(xs), *_ptrs(ys), *_ptrs(totals),
+            torch.cuda.current_stream(dev).cuda_stream))
+    return tuple(ys)

@@ -4,15 +4,22 @@
 On the CPU: the plain version (what a CPU tensor runs) and an emulation of
 the CUDA kernel's order of operations (``csrc/scan.cu``: 4096-row tiles of
 1024 threads x 4 rows, a serial scan per thread, Kogge-Stone shuffles per
-warp and over the 32 warp totals, the tile totals scanned by one block,
+warp and over the 32 warp totals, the tile totals scanned in steps of 4096,
 then tile prefix o local value), each against a sequential loop in numpy,
-for every op, width and edge size; then the emulation fed through
-``_webrtc_from_bands`` at 60,000 windows against the JAX package's at the
-bars of ``tests/test_torch_webrtc.py``. The kernel itself runs only on the
-card: the ``cuda``-marked cases hold it against the plain version and,
-bit for bit, against the emulation (``chip_smoke.py`` holds it against the
-plain version at every path's shapes).
+for every op, width and edge size; the property the one-pass kernel rests
+on (the totals' scan at position j depends on positions 0..j only, so a
+block that scans its predecessors' totals alone gets the bits of the whole
+scan); then the emulation fed through ``_webrtc_from_bands`` at 60,000
+windows against the JAX package's at the bars of
+``tests/test_torch_webrtc.py``. The kernel itself runs only on the card:
+the ``cuda``-marked cases hold it bit for bit against the emulation and
+against its former three-launch design (``scan.two_level_scan``), over
+three runs, under launches from two threads at once and on an unaligned
+view (``chip_smoke.py`` holds it against the plain version and the former
+design at every path's shapes).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -176,6 +183,69 @@ def _emulated_scan_cols(x, op, reverse=False):
 
 def _emulated_affine_scan(a, b):
     return emulate((a, b), "affine")
+
+
+def _scan_totals(vals, op, dtype):
+    """csrc/scan.cu's scan of the tile totals on a batch: ``vals`` is a
+    tuple of ``[B, N]`` tensors, scanned along N in steps of TILE totals by
+    the tile scan, each step seeded with the last one's carry."""
+    comb, ident = _combiner(op, dtype), _identity(op, dtype)
+    b, n = vals[0].shape
+    steps = -(-n // TILE)
+    pad = steps * TILE - n
+    vals = tuple(torch.cat([t, _full(t[:, :1].expand(b, pad), i)], dim=1)
+                 for t, i in zip(vals, ident))
+    carry = tuple(torch.full((b, 1, 1), i, dtype=t.dtype) for t, i in zip(vals, ident))
+    out = []
+    for k in range(steps):
+        step = tuple(t[:, k * TILE:(k + 1) * TILE].reshape(b, THREADS, ROWS) for t in vals)
+        local = comb(carry, _tile_scan(step, comb, ident))
+        local = tuple(t.reshape(b, TILE) for t in local)
+        carry = tuple(t[:, -1:, None] for t in local)
+        out.append(local)
+    return tuple(torch.cat([o[k] for o in out], dim=1)[:, :n] for k in range(len(vals)))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _random_totals(op, dtype, n, rng):
+    if op == "affine":
+        return (torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)),
+                torch.from_numpy((rng.randn(n) * 30.0).astype(np.float32)))
+    if dtype == torch.int32:
+        return (torch.from_numpy(rng.randint(-10 ** 6, 10 ** 6, n).astype(np.int32)),)
+    return (torch.from_numpy((rng.randn(n) * 30.0).astype(np.float32)),)
+
+
+TOTALS_OPS = [("add", torch.float32), ("min", torch.float32), ("max", torch.float32),
+              ("min", torch.int32), ("max", torch.int32), ("affine", torch.float32)]
+
+
+@pytest.mark.parametrize("n", (TILE, TILE + 200), ids=("one step", "two steps"))
+@pytest.mark.parametrize("op,dtype", TOTALS_OPS)
+def test_totals_scan_at_j_depends_on_positions_up_to_j(op, dtype, n):
+    """What the one-pass kernel's look-back rests on: in the order of the
+    totals' scan, the value at position j with every later position set to
+    the identity equals the whole scan's value at j, bit for bit, at every
+    position of one step (4096 totals) and of two (the second seeded with
+    the first one's carry)."""
+    rng = np.random.RandomState(n + len(op))
+    vals = _random_totals(op, dtype, n, rng)
+    full = _scan_totals(tuple(v[None] for v in vals), op, dtype)
+    positions = list(range(n))
+    ident = _identity(op, dtype)
+    idx = torch.arange(n)
+    for start in range(0, len(positions), 256):
+        js = torch.tensor(positions[start:start + 256])
+        later = idx[None, :] > js[:, None]
+        cut = tuple(torch.where(later, torch.full_like(v[None], i), v[None])
+                    for v, i in zip(vals, ident))
+        got = _scan_totals(cut, op, dtype)
+        rows = torch.arange(len(js))
+        for g, f in zip(got, full):
+            assert torch.equal(_bits(g[rows, js]), _bits(f[0, js]))
 
 
 # ---- the plain version and the emulation against a loop ----
@@ -388,3 +458,122 @@ def test_affine_kernel_against_emulation(cuda_device, n):
     got = scan.affine_scan(a.to(cuda_device), b.to(cuda_device))
     for g, w in zip(got, _emulated_affine_scan(a, b)):
         assert torch.equal(g.cpu(), w)
+
+
+# (op, dtype, reverse) of every scan the kernel takes, the affine pair too
+KERNEL_CASES = CASES + [("affine", np.float32, False)]
+# beyond 4096 tiles: the look-back's scan of the totals takes two steps
+MANY_TILES = (TILE + 3) * TILE + 5
+
+
+def _kernel_inputs(op, dtype, n, c, seed, device):
+    """``scan.two_level_scan``'s ``xs`` for one case, on ``device``."""
+    if op == "affine":
+        a, b = _affine_inputs(n, c, seed=seed, n_valid=n - n // 3)
+        return (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+    return (torch.from_numpy(_inputs(op, dtype, n, c, seed)).to(device),)
+
+
+def _kernel(xs, op, reverse):
+    """The wrapper's route: the one-pass kernel."""
+    if op == "affine":
+        return scan.affine_scan(*xs)
+    return (scan.scan_cols(xs[0], op, reverse),)
+
+
+def _same_bits(got, want):
+    return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES + (MANY_TILES,))
+@pytest.mark.parametrize("op,dtype,reverse", KERNEL_CASES)
+def test_one_pass_equals_the_two_level_route(cuda_device, op, dtype, reverse, n):
+    """On the card: the one-pass kernel gives the former three-launch
+    design's bits at every op, width and size, and past 4096 tiles (one
+    column); one launch per call, none for the yardstick."""
+    for c in ((1,) if n == MANY_TILES else (1, 2, 6)):
+        xs = _kernel_inputs(op, dtype, n, c, n + c, cuda_device)
+        before = scan.launches
+        got = _kernel(xs, op, reverse)
+        assert scan.launches == before + 1
+        want = scan.two_level_scan(xs, op, reverse)
+        assert scan.launches == before + 1
+        assert _same_bits(got, want), (op, reverse, n, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype,reverse", KERNEL_CASES)
+def test_one_pass_gives_the_same_bits_three_times(cuda_device, op, dtype, reverse):
+    """The look-back reads the earlier tiles' totals in a fixed order, so
+    whichever tiles publish first, every run gives the same bits (the 90
+    minutes as one chunk: 132 tiles, more than one block per SM's worth)."""
+    n = 540085
+    xs = _kernel_inputs(op, dtype, n, 6 if dtype == np.float32 else 1, 11, cuda_device)
+    runs = [_kernel(xs, op, reverse) for _ in range(3)]
+    assert _same_bits(runs[1], runs[0]) and _same_bits(runs[2], runs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", ("one stream", "two streams"))
+def test_concurrent_launches_from_two_threads(cuda_device, streams):
+    """Two threads launching at once, on the caller's stream or each on a
+    stream of its own, each get the bits of a lone launch: the launches
+    on one workspace take distinct epochs, and two streams two
+    workspaces."""
+    jobs = [[("affine", np.float32, False, 270000, 6), ("min", np.int32, True, 264000, 1)],
+            [("add", np.float32, False, 270085, 2), ("min", np.float32, False, 135000, 6)]]
+    inputs = [[(op, rev, _kernel_inputs(op, dt, n, c, n + c, cuda_device))
+               for op, dt, rev, n, c in job] for job in jobs]
+    lone = [[_kernel(xs, op, rev) for op, rev, xs in job] for job in inputs]
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    results, errors = [None, None], []
+
+    def worker(k):
+        try:
+            stream = (torch.cuda.current_stream(cuda_device) if streams == "one stream"
+                      else torch.cuda.Stream(cuda_device))
+            with torch.cuda.stream(stream):
+                start.wait()
+                results[k] = [[_kernel(xs, op, rev) for op, rev, xs in inputs[k]]
+                              for _ in range(20)]
+            stream.synchronize()
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for k in range(2):
+        for run in results[k]:
+            for got, want in zip(run, lone[k]):
+                assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype,reverse", KERNEL_CASES)
+def test_unaligned_view_gives_the_bits_of_its_copy(cuda_device, op, dtype, reverse):
+    """A view that starts one row in is not 16-byte aligned at widths 1, 2
+    and 6: the kernel reads it element by element and gives the bits of its
+    contiguous, aligned copy."""
+    for c in (1, 2, 6):
+        xs = _kernel_inputs(op, dtype, 3 * TILE + 18, c, c, cuda_device)
+        views = tuple(x[1:] for x in xs)
+        assert all(v.is_contiguous() and v.data_ptr() % 16 for v in views)
+        copies = tuple(v.clone() for v in views)
+        assert all(t.data_ptr() % 16 == 0 for t in copies)
+        assert _same_bits(_kernel(views, op, reverse), _kernel(copies, op, reverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", (3, 7))
+def test_other_widths_raise(cuda_device, c):
+    """The kernel takes the detector's widths only."""
+    with pytest.raises(ValueError, match="1 or 2 or 6 columns"):
+        scan.scan_cols(torch.zeros((10, c), device=cuda_device), "add")
