@@ -1,0 +1,9 @@
+# -*- coding: utf-8 -*-
+"""Share of the traced window in which no kernel, copy or set runs on the
+card (the union of their intervals), in percent."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0 or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
