@@ -17,6 +17,7 @@ lazily.
 import logging
 import sys
 
+from ffsubsync_tpu_torch.utils import tracing
 from ffsubsync_tpu_torch.version import __version__  # noqa: F401
 
 try:
@@ -26,6 +27,8 @@ try:
     handler = RichHandler(console=Console(file=sys.stderr))
 except ImportError:  # pragma: no cover
     handler = logging.StreamHandler(sys.stderr)  # type: ignore[assignment]
+# each record the handler renders and writes is a ``log`` span
+handler.handle = tracing.spanned("log")(handler.handle)  # type: ignore[method-assign]
 logging.basicConfig(format="%(message)s", handlers=[handler], level=logging.INFO)
 
 _LAZY = {

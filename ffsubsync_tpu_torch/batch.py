@@ -50,6 +50,7 @@ from ffsubsync_tpu_torch.constants import (
     SUBTITLE_EXTENSIONS,
 )
 from ffsubsync_tpu_torch.subs.transforms import shift_document
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +96,7 @@ def _make_ref_source(reference: str, vad: str, frame_rate: int,
     return make_reference_extractor(ns)
 
 
+@tracing.spanned("batch", root=True)
 def sync_batch(
     jobs: Sequence[Tuple[str, str, str]],
     vad: str = DEFAULT_VAD,
@@ -151,6 +153,7 @@ def sync_batch(
     ]
 
     # --- speech extraction (decode is I/O-bound; VAD runs on the device) ---
+    @tracing.spanned("extract")
     def _extract(idx: int):
         reference = jobs[idx][0]
         source = _make_ref_source(reference, vad, frame_rate, ref_options)
@@ -159,7 +162,7 @@ def sync_batch(
 
     ref_sources: List[Optional[Any]] = [None] * len(jobs)
     with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, decode_workers)) as pool:
-        futures = {pool.submit(_extract, i): i for i in range(len(jobs))}
+        futures = {pool.submit(tracing.bind(_extract), i): i for i in range(len(jobs))}
         for fut in concurrent.futures.as_completed(futures):
             i = futures[fut]
             try:
@@ -274,11 +277,12 @@ def sync_batch(
                 raise RuntimeError("no alignment within +/-%s s" % max_offset_seconds)
             best, best_source = max(eligible, key=lambda x: x[0].score)
             offset_seconds = best.offset / float(SAMPLE_RATE)
-            out_subs = shift_document(best_source.scaled_doc_, offset_seconds)
             srtout = jobs[i][2]
-            if output_encoding != "same":
-                out_subs = out_subs.set_encoding(output_encoding)
-            out_subs.write_file(srtout)
+            with tracing.span("write"):
+                out_subs = shift_document(best_source.scaled_doc_, offset_seconds)
+                if output_encoding != "same":
+                    out_subs = out_subs.set_encoding(output_encoding)
+                out_subs.write_file(srtout)
             # flag (but still write) syncs the single-file quality gate would
             # reject, so "re-run ffs on the stragglers" is actionable
             quality_reasons = assess_alignment_quality(

@@ -330,9 +330,10 @@ def add_cli_only_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--profile-dir",
         default=None,
-        help="Capture a device profile of the sync into this directory "
-        "(jax.profiler trace, viewable in TensorBoard/XProf or Perfetto). "
-        "The reference has no profiler; this is TPU-native observability.",
+        help="Write a torch.profiler Chrome trace of the sync into this "
+        "directory (trace.json, viewable in Perfetto or chrome://tracing): "
+        "the device's kernels and the program's spans (parse, raster, read, "
+        "stage, vad_program, align, write, ...). The reference has no profiler.",
     )
 
 

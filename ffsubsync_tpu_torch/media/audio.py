@@ -24,6 +24,7 @@ import torch
 from ffsubsync_tpu_torch.constants import is_remote_url
 from ffsubsync_tpu_torch.media.ffmpeg import ffmpeg_bin_path, probe_duration, subprocess_args
 from ffsubsync_tpu_torch.media.wav import WavReader, is_wav_file
+from ffsubsync_tpu_torch.utils import tracing
 from ffsubsync_tpu_torch.utils.progress import ProgressInfo, ProgressReporter
 from ffsubsync_tpu_torch.ops.vad import _pipeline_chunk_samples, make_detector
 from ffsubsync_tpu_torch.parallel.vad_shard import maybe_sharded_detector
@@ -33,9 +34,11 @@ logger = logging.getLogger(__name__)
 WINDOWS_PER_BUFFER = 10000  # ~100 s of audio per decoded read
 
 
+@tracing.spanned("pcm_join")
 def _join_pcm_parts(parts):
     """One contiguous buffer from accumulated PCM chunks (a single part
-    passes through untouched: the zero-copy WAV case)."""
+    passes through untouched: the zero-copy WAV case). Joining the WAV
+    reader's slices of its memory map is where the file's pages are read."""
     if len(parts) == 1:
         return parts[0]
     if isinstance(parts[0], np.ndarray):
@@ -131,7 +134,8 @@ class VideoSpeechSource:
             ffmpeg_args.extend(["-t", str(timedelta(seconds=limit))])
         ffmpeg_args.append(temp_path)
         logger.info("extracting audio from remote reference to %s...", temp_path)
-        retcode = subprocess.call(ffmpeg_args, **subprocess_args(include_stdout=False))
+        with tracing.span("spawn"):
+            retcode = subprocess.call(ffmpeg_args, **subprocess_args(include_stdout=False))
         if retcode != 0 or not os.path.getsize(temp_path):
             logger.warning(
                 "audio extraction failed (ffmpeg returned %d); "
@@ -153,7 +157,8 @@ class VideoSpeechSource:
         ):
             try:
                 logger.info("Checking video for subtitles stream...")
-                self.try_fit_using_embedded_subs(fname)
+                with tracing.span("probe"):
+                    self.try_fit_using_embedded_subs(fname)
                 logger.info("...success!")
                 return self
             except Exception as e:
@@ -206,23 +211,33 @@ class VideoSpeechSource:
 
     def _iter_pcm_chunks(self, fname: str, bytes_per_buffer: int, pcm_rate: int):
         """Raw PCM chunks: int16 arrays from the WAV reader, bytes from the
-        ffmpeg pipe."""
+        ffmpeg pipe. Each step of either is a ``read`` span."""
         if self._use_native_wav(fname):
             logger.info("decoding WAV natively (no ffmpeg subprocess)")
             reader = WavReader(fname)
-            yield from reader.iter_chunks(
+            chunks = reader.iter_chunks(
                 target_rate=pcm_rate,
                 chunk_seconds=float(WINDOWS_PER_BUFFER) / self.sample_rate,
                 start_seconds=self.start_seconds,
                 max_duration_seconds=self.max_duration_seconds,
             )
-            return
-        process = subprocess.Popen(
-            self._build_ffmpeg_args(fname), **subprocess_args(include_stdout=True)
-        )
+            try:
+                while True:
+                    with tracing.span("read"):
+                        chunk = next(chunks, None)
+                    if chunk is None:
+                        return
+                    yield chunk
+            finally:
+                chunks.close()
+        with tracing.span("spawn"):
+            process = subprocess.Popen(
+                self._build_ffmpeg_args(fname), **subprocess_args(include_stdout=True)
+            )
         try:
             while True:
-                in_bytes = process.stdout.read(bytes_per_buffer)
+                with tracing.span("read"):
+                    in_bytes = process.stdout.read(bytes_per_buffer)
                 if not in_bytes:
                     break
                 yield in_bytes
@@ -265,15 +280,17 @@ class VideoSpeechSource:
         if self.max_duration_seconds is not None and total_duration is not None:
             total_duration = min(total_duration, self.max_duration_seconds)
         pcm_rate = self._pcm_rate(fname)
-        detector = make_detector(
-            self.vad, self.sample_rate, pcm_rate, self._non_speech_label, self.device
-        )
         buffered = self._use_buffered_vad(total_duration, pcm_rate)
         sp_detector = None
-        if buffered:
-            sp_detector = maybe_sharded_detector(
+        with tracing.span("detector"):
+            detector = make_detector(
                 self.vad, self.sample_rate, pcm_rate, self._non_speech_label, self.device
             )
+            if buffered:
+                sp_detector = maybe_sharded_detector(
+                    self.vad, self.sample_rate, pcm_rate, self._non_speech_label,
+                    self.device,
+                )
         max_buffer_bytes = int(os.environ.get("FFS_TPU_MAX_BUFFER_BYTES", 4 * 1024**3))
         bytes_per_frame = 2
         bytes_per_window = bytes_per_frame * pcm_rate // self.sample_rate

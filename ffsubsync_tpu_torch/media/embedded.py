@@ -20,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 
 from ffsubsync_tpu_torch.media.ffmpeg import ffmpeg_bin_path, subprocess_args
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -59,7 +60,8 @@ def probe_embedded_subtitle_streams(
         fname,
     ]
     try:
-        process = subprocess.Popen(ffprobe_args, **subprocess_args(include_stdout=True))
+        with tracing.span("spawn"):
+            process = subprocess.Popen(ffprobe_args, **subprocess_args(include_stdout=True))
         output = process.communicate()[0]
     except OSError as e:
         logger.warning("ffprobe unavailable while enumerating subtitles: %s", e)
@@ -106,7 +108,8 @@ def extract_subs_single_pass(
             out_path = os.path.join(tmpdir, "embedded.{}.srt".format(i))
             out_paths.append(out_path)
             ffmpeg_args.extend(["-map", "{}".format(stream), "-f", "srt", out_path])
-        process = subprocess.Popen(ffmpeg_args, **subprocess_args(include_stdout=True))
+        with tracing.span("spawn"):
+            process = subprocess.Popen(ffmpeg_args, **subprocess_args(include_stdout=True))
         process.communicate()
         if process.returncode != 0:
             return None
@@ -144,7 +147,8 @@ def extract_subs_per_stream(
             "srt",
             "-",
         ]
-        process = subprocess.Popen(ffmpeg_args, **subprocess_args(include_stdout=True))
+        with tracing.span("spawn"):
+            process = subprocess.Popen(ffmpeg_args, **subprocess_args(include_stdout=True))
         output = process.communicate()[0]
         if process.returncode != 0:
             break

@@ -16,6 +16,7 @@ import subprocess
 from typing import Any, Dict, List, Optional
 
 from ffsubsync_tpu_torch.constants import SUBSYNC_RESOURCES_ENV_MAGIC
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -92,7 +93,8 @@ def ffprobe_json(
     if extra_args:
         args.extend(extra_args)
     args.append(fname)
-    process = subprocess.Popen(args, **subprocess_args(include_stdout=True))
+    with tracing.span("spawn"):
+        process = subprocess.Popen(args, **subprocess_args(include_stdout=True))
     out, err = process.communicate()
     if process.returncode != 0:
         raise RuntimeError(

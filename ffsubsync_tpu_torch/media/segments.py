@@ -21,6 +21,7 @@ from ffsubsync_tpu_torch.constants import is_remote_url
 from ffsubsync_tpu_torch.media.ffmpeg import probe_duration
 from ffsubsync_tpu_torch.media.wav import WavReader, is_wav_file
 from ffsubsync_tpu_torch.media.audio import VideoSpeechSource
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +129,7 @@ class MultiSegmentVideoSpeechSource:
         workers = max(1, min(self.parallel_workers, len(starts)))
         with ThreadPoolExecutor(max_workers=workers) as executor:
             future_to_start = {
-                executor.submit(self._extract_segment_speech, fname, start): start
+                executor.submit(tracing.bind(self._extract_segment_speech), fname, start): start
                 for start in starts
             }
             for future in as_completed(future_to_start):

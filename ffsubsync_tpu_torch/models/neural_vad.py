@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ffsubsync_tpu_torch.utils import tracing
+
 # The reference computes in full float32. On the card cuDNN would run the
 # float32 convolutions in TF32 (about three decimal digits) by default and
 # a matmul could be allowed to as well: keep both in true float32 so the
@@ -230,6 +232,7 @@ def jax_layout(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: np.array(v.numpy(), dtype=np.float32, order="C") for k, v in d.items()}
 
 
+@tracing.spanned("net_load")
 def load_net(rate: int, device: torch.device) -> NeuralVADNet:
     """The net with the shipped weights for an analysis rate, on ``device``.
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ffsubsync_tpu_torch.subs.raster import RasterSpec
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -157,6 +158,7 @@ def prepare_ref_pm(ref: RefLike, n: int, device: Optional[torch.device] = None) 
     return align_device.prepare_ref_pm(ref, n, device or get_device())
 
 
+@tracing.spanned("align")
 def align_candidates(
     ref: RefLike,
     candidates: Sequence[RasterSpec],
@@ -197,10 +199,9 @@ def align_candidates(
     scores, offsets = align_device.align_specs(
         ref_pm[None], *(torch.from_numpy(a).to(device) for a in arrays), n, n_offsets
     )
-    return [
-        Alignment(float(s), int(o))
-        for s, o in zip(scores[0].cpu().tolist(), offsets[0].cpu().tolist())
-    ]
+    with tracing.span("label_wait"):
+        scores, offsets = scores[0].cpu().tolist(), offsets[0].cpu().tolist()
+    return [Alignment(float(s), int(o)) for s, o in zip(scores, offsets)]
 
 
 def pack_candidates(

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ffsubsync_tpu_torch.utils import tracing
+
 WEBRTC_BAND_EDGES_HZ = (80.0, 250.0, 500.0, 1000.0, 2000.0, 3000.0, 4000.0)
 _MIN_ANALYSIS_RATE = 12000
 
@@ -126,6 +128,7 @@ def prepare_staged_input(
     return framed, rate, window, n_windows
 
 
+@tracing.spanned("stage")
 def stage_to_device(
     pcm_i16: np.ndarray, frame_rate: int, sample_rate: int, device: torch.device
 ) -> Tuple[torch.Tensor, int, int, int]:

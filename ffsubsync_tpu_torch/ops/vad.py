@@ -50,6 +50,7 @@ from ffsubsync_tpu_torch.ops.features import (
     stage_to_device,
 )
 from ffsubsync_tpu_torch.ops.frontend import fused_frontend
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -276,6 +277,7 @@ def initial_state(device: torch.device) -> Dict[str, object]:
     }
 
 
+@tracing.spanned("vad_program")
 def _vad_program(framed, window, frame_rate, n_valid, state,
                  net: Optional[NeuralVADNet], non_speech_label, mode):
     """One VAD chunk: frontend -> detector backend(s) -> labels, plus the
@@ -319,7 +321,7 @@ def _vad_program(framed, window, frame_rate, n_valid, state,
         var = torch.sum(((feats - mean) * mask) ** 2, dim=0, keepdim=True) / denom
         x = (feats - mean) / (torch.sqrt(var) + 1e-3)
         x = torch.where(mask, x, 0.0)
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("net"):
             probs = net(x, valid_rows.to(x.dtype))[ctx:]
         silero_labels = 1.0 - (1.0 - probs) * (1.0 - non_speech_label)
         new["carry"] = feats[n_valid : n_valid + ctx]

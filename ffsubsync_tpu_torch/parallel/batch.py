@@ -27,6 +27,7 @@ from ffsubsync_tpu_torch.models import neural_vad
 from ffsubsync_tpu_torch.ops.align import pack_candidates
 from ffsubsync_tpu_torch.ops.align_device import align_specs, prepare_ref_pm
 from ffsubsync_tpu_torch.ops.features import log_mel_features
+from ffsubsync_tpu_torch.utils import tracing
 
 
 class BatchAligner:
@@ -41,6 +42,7 @@ class BatchAligner:
         if not self.mesh:
             raise ValueError("BatchAligner needs a mesh of at least one device")
 
+    @tracing.spanned("align")
     def align_batch(
         self,
         refs: Sequence,
@@ -70,8 +72,9 @@ class BatchAligner:
             launched.append(align_specs(
                 ref_pm, *(torch.from_numpy(a[part]).to(dev) for a in arrays), n, n_offsets
             ))
-        scores = np.concatenate([s.cpu().numpy() for s, _o in launched])
-        offsets = np.concatenate([o.cpu().numpy() for _s, o in launched])
+        with tracing.span("label_wait"):
+            scores = np.concatenate([s.cpu().numpy() for s, _o in launched])
+            offsets = np.concatenate([o.cpu().numpy() for _s, o in launched])
         return [
             [Alignment(float(scores[i, j]), int(offsets[i, j])) for j in range(len(cands))]
             for i, cands in enumerate(candidates_per_ref)

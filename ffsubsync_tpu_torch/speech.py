@@ -30,6 +30,7 @@ from ffsubsync_tpu_torch.subs.model import SubtitleDocument
 from ffsubsync_tpu_torch.subs.parser import SubtitleParser, make_subtitle_parser
 from ffsubsync_tpu_torch.subs.raster import RasterSpec, rasterize_cues
 from ffsubsync_tpu_torch.subs.transforms import scale_document
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +80,7 @@ class SubtitleSpeechSource:
         self.scaled_doc_: Optional[SubtitleDocument] = None
         self.spec_: Optional[RasterSpec] = None
 
+    @tracing.spanned("raster")
     def fit(self, fname: Any) -> "SubtitleSpeechSource":
         self.parser.fit(fname)
         self.parsed_doc_ = self.parser.subs_

@@ -23,6 +23,7 @@ from ffsubsync_tpu_torch.subs import formats
 from ffsubsync_tpu_torch.subs.model import Cue, SubtitleDocument, seconds_to_us
 from ffsubsync_tpu_torch.utils.encodings import infer_encoding
 from ffsubsync_tpu_torch.utils.file_io import open_file
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -74,39 +75,40 @@ class SubtitleParser:
             "<stdin>" if fname is None else fname
         ):
             return self
-        with open_file(fname, "rb") as f:
-            raw = f.read()
-        encodings_to_try = (self.encoding,)
-        if self.encoding == "infer":
-            detected = infer_encoding(raw)
-            if detected is None:
-                raise ValueError(
-                    "unable to detect encoding of input subtitles; "
-                    "specify one explicitly with --encoding"
-                )
-            self.detected_encoding_ = detected
-            encodings_to_try = (detected,)
-            logger.info("detected encoding: %s", detected)
-        exc: Optional[Exception] = None
-        for encoding in encodings_to_try:
-            try:
-                decoded = raw.decode(encoding, errors="replace").strip()
-                doc = formats.parse_document(
-                    decoded, self.sub_format, encoding, strict=self.strict
-                )
-                doc.cues = _preprocess_cues(
-                    doc.cues,
-                    max_subtitle_seconds=self.max_subtitle_seconds,
-                    start_seconds=self.start_seconds,
-                )
-                self.subs_ = doc
-                self.fit_fname = "<stdin>" if fname is None else fname
-                return self
-            except Exception as e:  # try the next encoding, as the reference does
-                exc = e
-                continue
-        assert exc is not None
-        raise exc
+        with tracing.span("parse"):
+            with open_file(fname, "rb") as f:
+                raw = f.read()
+            encodings_to_try = (self.encoding,)
+            if self.encoding == "infer":
+                detected = infer_encoding(raw)
+                if detected is None:
+                    raise ValueError(
+                        "unable to detect encoding of input subtitles; "
+                        "specify one explicitly with --encoding"
+                    )
+                self.detected_encoding_ = detected
+                encodings_to_try = (detected,)
+                logger.info("detected encoding: %s", detected)
+            exc: Optional[Exception] = None
+            for encoding in encodings_to_try:
+                try:
+                    decoded = raw.decode(encoding, errors="replace").strip()
+                    doc = formats.parse_document(
+                        decoded, self.sub_format, encoding, strict=self.strict
+                    )
+                    doc.cues = _preprocess_cues(
+                        doc.cues,
+                        max_subtitle_seconds=self.max_subtitle_seconds,
+                        start_seconds=self.start_seconds,
+                    )
+                    self.subs_ = doc
+                    self.fit_fname = "<stdin>" if fname is None else fname
+                    return self
+                except Exception as e:  # try the next encoding, as the reference does
+                    exc = e
+                    continue
+            assert exc is not None
+            raise exc
 
     def transform(self, *_: Any) -> SubtitleDocument:
         assert self.subs_ is not None

@@ -14,6 +14,7 @@ that ``FFS_TORCH_DEVICE`` names (resolved once, in
 and PGS references stay on the host, as in the reference.
 """
 import argparse
+import contextlib
 import logging
 import os
 import subprocess
@@ -44,6 +45,7 @@ from ffsubsync_tpu_torch.speech import (
 from ffsubsync_tpu_torch.subs.parser import make_subtitle_parser
 from ffsubsync_tpu_torch.subs.transforms import merge_documents, shift_document
 from ffsubsync_tpu_torch.utils.archive import make_test_case, session_log_path
+from ffsubsync_tpu_torch.utils import tracing
 from ffsubsync_tpu_torch.utils.progress import ProgressInfo
 from ffsubsync_tpu_torch.validation import (
     reference_format as _ref_format,
@@ -313,31 +315,35 @@ def try_sync(
                     "; ".join(low_quality_reasons),
                 )
                 sync_was_successful = False
-                original_subs = best_source.parsed_doc_
-                out_subs = original_subs.clone_props_for_subs(list(original_subs))
+                with tracing.span("write"):
+                    original_subs = best_source.parsed_doc_
+                    out_subs = original_subs.clone_props_for_subs(list(original_subs))
+                    if args.output_encoding != "same":
+                        out_subs = out_subs.set_encoding(args.output_encoding)
+                    logger.info(
+                        "writing original (unsynced) output to %s", srtout or "stdout"
+                    )
+                    out_subs.write_file(srtout)
+                continue
+            with tracing.span("write"):
+                out_subs = shift_document(best_source.scaled_doc_, offset_seconds)
+                if args.merge_with_reference:
+                    out_subs = merge_documents(
+                        out_subs, ref_extractor.parsed_doc_, first="reference"
+                    )
                 if args.output_encoding != "same":
                     out_subs = out_subs.set_encoding(args.output_encoding)
-                logger.info("writing original (unsynced) output to %s", srtout or "stdout")
-                out_subs.write_file(srtout)
-                continue
-            out_subs = shift_document(best_source.scaled_doc_, offset_seconds)
-            if args.merge_with_reference:
-                out_subs = merge_documents(
-                    out_subs, ref_extractor.parsed_doc_, first="reference"
-                )
-            if args.output_encoding != "same":
-                out_subs = out_subs.set_encoding(args.output_encoding)
-            suppress_output_thresh = args.suppress_output_if_offset_less_than
-            if offset_seconds >= (suppress_output_thresh or float("-inf")):
-                logger.info("writing output to %s", srtout or "stdout")
-                out_subs.write_file(srtout)
-            else:
-                logger.warning(
-                    "suppressing output because offset %s was less than "
-                    "suppression threshold %s",
-                    offset_seconds,
-                    args.suppress_output_if_offset_less_than,
-                )
+                suppress_output_thresh = args.suppress_output_if_offset_less_than
+                if offset_seconds >= (suppress_output_thresh or float("-inf")):
+                    logger.info("writing output to %s", srtout or "stdout")
+                    out_subs.write_file(srtout)
+                else:
+                    logger.warning(
+                        "suppressing output because offset %s was less than "
+                        "suppression threshold %s",
+                        offset_seconds,
+                        args.suppress_output_if_offset_less_than,
+                    )
         except Exception:
             sync_was_successful = False
             logger.exception("failed to sync %s", srtin)
@@ -470,7 +476,8 @@ def extract_subtitles_from_reference(args: argparse.Namespace) -> int:
         "attempting to extract subtitles to %s ...",
         "stdout" if args.srtout is None else args.srtout,
     )
-    retcode = subprocess.call(ffmpeg_args)
+    with tracing.span("spawn"):
+        retcode = subprocess.call(ffmpeg_args)
     if retcode == 0:
         logger.info("...done")
     else:
@@ -569,8 +576,10 @@ def run(
     {retval, offset_seconds, framerate_scale_factor, sync_was_successful}.
 
     ``--profile-dir`` records a ``torch.profiler`` trace (CPU and, on the
-    card, CUDA activity) of the whole sync as a Chrome trace in that
-    directory.
+    card, CUDA activity) of the sync as a Chrome trace, ``trace.json`` in
+    that directory (Perfetto or ``chrome://tracing`` open it): the kernels,
+    and the program's spans (:mod:`ffsubsync_tpu_torch.utils.tracing`) as
+    ``user_annotation`` ranges under the ``sync`` root.
     """
     sync_was_successful = False
     result: Dict[str, Any] = {
@@ -585,6 +594,7 @@ def run(
     log_path, log_handler = _setup_logging(args)
     try:
         profile_dir = getattr(args, "profile_dir", None)
+        profiler: Any = contextlib.nullcontext()
         if profile_dir:
             import torch
 
@@ -593,15 +603,14 @@ def run(
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             logger.info("profiling device trace to %s", profile_dir)
             os.makedirs(profile_dir, exist_ok=True)
-            with torch.profiler.profile(activities=activities) as prof:
-                sync_was_successful = _run_impl(
-                    args, result, progress_handler=progress_handler
-                )
-            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        else:
+            profiler = torch.profiler.profile(activities=activities)
+        # the root span opens inside the profiled block, so the trace holds it
+        with profiler, tracing.span("sync", root=True):
             sync_was_successful = _run_impl(
                 args, result, progress_handler=progress_handler
             )
+        if profile_dir:
+            profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         result["sync_was_successful"] = sync_was_successful
         return result
     finally:

@@ -13,6 +13,8 @@ import logging
 import sys
 from typing import Callable, NamedTuple, Optional
 
+from ffsubsync_tpu_torch.utils import tracing
+
 logger = logging.getLogger(__name__)
 
 
@@ -53,6 +55,7 @@ class ProgressReporter:
         self._pbar_output: Optional[io.StringIO] = None
         self._stderr_redirect = None
 
+    @tracing.spanned("progress")
     def __enter__(self) -> "ProgressReporter":
         if self.gui_mode:
             # capture stray stderr during extraction and re-surface it on
@@ -78,6 +81,7 @@ class ProgressReporter:
             self._pbar = None
         return self
 
+    @tracing.spanned("progress")
     def __exit__(self, exc_type=None, exc=None, tb=None) -> None:
         if self._pbar is not None:
             self._pbar.close()
@@ -90,6 +94,7 @@ class ProgressReporter:
             if tail:
                 print(tail)
 
+    @tracing.spanned("progress")
     def update(self, new_seconds: float) -> None:
         if (
             self.total_seconds is not None

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """The port's own copies of the JAX package's host code stay equal to their
-originals: module sources (the package name substituted), the functions
-merged into port modules, the host library's C++ source, the weight files,
-what the two host libraries compute, ``__version__`` and the CLI parser."""
+originals: module sources (the package name substituted, the port's spans
+taken out), the functions merged into port modules, the host library's C++
+source, the weight files, what the two host libraries compute,
+``__version__`` and the CLI parser (the ``--profile-dir`` help apart)."""
 import ctypes
 import hashlib
 import importlib
@@ -75,6 +76,47 @@ def _port_text(text: str) -> str:
     return re.sub(r"\bffsubsync_tpu\b", "ffsubsync_tpu_torch", text)
 
 
+# What the port adds to its copies: the import of its tracing module, span
+# decorators, and span blocks (a ``with`` line, its block one level deeper).
+# The JAX package traces nothing of its own; the --profile-dir help names the
+# profiler each package writes with.
+TRACING_IMPORT = "from ffsubsync_tpu_torch.utils import tracing\n"
+SPAN_DECORATOR = re.compile(r'^\s*@tracing\.spanned\("[a-z_]+"\)\n$')
+SPAN_BLOCK = re.compile(r'^\s*with tracing\.span\("[a-z_]+"\):\n$')
+PROFILE_DIR_HELP = (
+    """        help="Capture a device profile of the sync into this directory "
+        "(jax.profiler trace, viewable in TensorBoard/XProf or Perfetto). "
+        "The reference has no profiler; this is TPU-native observability.",
+""",
+    """        help="Write a torch.profiler Chrome trace of the sync into this "
+        "directory (trace.json, viewable in Perfetto or chrome://tracing): "
+        "the device's kernels and the program's spans (parse, raster, read, "
+        "stage, vad_program, align, write, ...). The reference has no profiler.",
+""",
+)
+
+
+def _without_spans(text: str) -> str:
+    """The port's source with its spans taken out: what it was copied as."""
+    text = text.replace("\n\n" + TRACING_IMPORT + "\n", "\n\n").replace(TRACING_IMPORT, "")
+    out, blocks = [], []  # the indents of the span blocks open
+    for line in text.splitlines(True):
+        if line.strip():
+            indent = len(line) - len(line.lstrip(" "))
+            while blocks and indent <= blocks[-1]:
+                blocks.pop()
+            if SPAN_DECORATOR.match(line):
+                continue
+            if SPAN_BLOCK.match(line):
+                blocks.append(indent)
+                continue
+            cut = 4 * len(blocks)
+            assert line[:cut].strip() == "", line
+            line = line[cut:]
+        out.append(line)
+    return "".join(out)
+
+
 def _read(path: str) -> str:
     with open(path, encoding="utf-8") as f:
         return f.read()
@@ -83,14 +125,17 @@ def _read(path: str) -> str:
 @pytest.mark.parametrize("module", VERBATIM)
 def test_module_is_a_verbatim_copy(module):
     want = _port_text(_read(os.path.join(JAX_DIR, module)))
-    assert _read(os.path.join(PKG_DIR, module)) == want
+    if module == "cli.py":
+        assert want.count(PROFILE_DIR_HELP[0]) == 1
+        want = want.replace(*PROFILE_DIR_HELP)
+    assert _without_spans(_read(os.path.join(PKG_DIR, module))) == want
 
 
 @pytest.mark.parametrize("module,name", MERGED, ids=["%s.%s" % m for m in MERGED])
 def test_merged_source_is_a_verbatim_copy(module, name):
     ours = getattr(importlib.import_module("ffsubsync_tpu_torch." + module), name)
     theirs = getattr(importlib.import_module("ffsubsync_tpu." + module), name)
-    assert inspect.getsource(ours) == _port_text(inspect.getsource(theirs))
+    assert _without_spans(inspect.getsource(ours)) == _port_text(inspect.getsource(theirs))
 
 
 @pytest.mark.parametrize("module,name", MERGED_VALUES, ids=["%s.%s" % m for m in MERGED_VALUES])
@@ -264,7 +309,10 @@ def test_parser_gives_equal_namespaces(argv):
 
 def test_parser_has_every_flag_and_help():
     def flags(parser):
-        return [(a.option_strings, a.dest, a.default, a.help, a.choices, a.nargs)
+        return [(a.option_strings, a.dest, a.default,
+                 "<profiler>" if a.dest == "profile_dir" else a.help, a.choices, a.nargs)
                 for a in parser._actions]
 
     assert flags(torch_make_parser()) == flags(jax_make_parser())
+    help_of = {a.dest: a.help for a in torch_make_parser()._actions}
+    assert "torch.profiler" in help_of["profile_dir"] and "jax" not in help_of["profile_dir"]

@@ -3,6 +3,7 @@
 the WAV cases of tests/test_audio_e2e.py (synthetic speech whose spans
 match REF_SRT, subtitles shifted by a known offset), plus the lazy device
 signal at the aligner and the host-only reference kinds."""
+import json
 import os
 
 import numpy as np
@@ -132,6 +133,13 @@ def test_profile_dir_writes_a_torch_trace(tmp_path):
     )
     assert result["sync_was_successful"]
     assert (prof / "trace.json").stat().st_size > 0
+    # the program's spans, as the profiler's own ranges: the subtitle
+    # reference and the candidates parsed and rasterized, searched, written
+    with open(prof / "trace.json") as f:
+        ranges = [e["name"] for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "user_annotation"]
+    assert ranges.count("sync") == 1 and ranges.count("parse") == 2
+    assert {"raster", "align", "write"} <= set(ranges)
 
 
 def test_buffered_vad_spills_to_streaming_when_cap_exceeded(tmp_path, monkeypatch):
