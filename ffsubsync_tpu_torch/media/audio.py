@@ -34,13 +34,43 @@ logger = logging.getLogger(__name__)
 WINDOWS_PER_BUFFER = 10000  # ~100 s of audio per decoded read
 
 
+def _adjacent_view(parts):
+    """One view of the buffer under ``parts`` where they are adjacent 1-D
+    C-contiguous slices of it, in order (the WAV reader's slices of its
+    memory map); else None."""
+    first = parts[0]
+    root = first
+    while isinstance(root.base, np.ndarray):
+        root = root.base
+    if root.ndim != 1 or root.dtype != first.dtype or not root.flags.c_contiguous:
+        return None
+    end = first.ctypes.data
+    for p in parts:
+        if (not isinstance(p, np.ndarray) or p.ndim != 1 or p.dtype != first.dtype
+                or not p.flags.c_contiguous or p.ctypes.data != end):
+            return None
+        end += p.nbytes
+    offset = first.ctypes.data - root.ctypes.data
+    start, stop = offset // root.itemsize, (end - root.ctypes.data) // root.itemsize
+    if offset % root.itemsize or start < 0 or stop > len(root):
+        return None
+    return root[start:stop]
+
+
 @tracing.spanned("pcm_join")
 def _join_pcm_parts(parts):
-    """One contiguous buffer from accumulated PCM chunks (a single part
-    passes through untouched: the zero-copy WAV case). Joining the WAV
-    reader's slices of its memory map is where the file's pages are read."""
-    if len(parts) == 1:
-        return parts[0]
+    """One contiguous buffer from accumulated PCM chunks. A single part, or
+    the WAV reader's adjacent slices of its memory map, pass as a view (no
+    copy: the file's pages are read where the buffer is staged); anything
+    else (ffmpeg's bytes, resampled or down-mixed chunks) is copied into
+    one. Counts ``pcm_join.views`` and ``pcm_join.copies``."""
+    joined = parts[0] if len(parts) == 1 else None
+    if joined is None and isinstance(parts[0], np.ndarray):
+        joined = _adjacent_view(parts)
+    if joined is not None:
+        tracing.count("pcm_join.views")
+        return joined
+    tracing.count("pcm_join.copies")
     if isinstance(parts[0], np.ndarray):
         return np.concatenate(parts)
     return b"".join(parts)

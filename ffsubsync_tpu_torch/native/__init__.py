@@ -13,7 +13,12 @@ verbatim copy of ``native/ffs_native.cpp``). Two things differ, and why:
   lock and published by an atomic rename, so the decode and segment threads
   that reach it at once share one ``g++`` run;
 - the fallbacks of :func:`frame_for_device` and :func:`tokenize` take their
-  pure-Python halves from this package (``ops.frontend``, ``ops.vad``).
+  pure-Python halves from this package (``ops.frontend``, ``ops.vad``);
+- the staging calls (:func:`stage_for_device`, :func:`stage_for_device_p6`,
+  :func:`frame_for_device`) split a long signal without decimation into
+  ranges of windows, one library call each, on one pool of the process's
+  cores (:func:`_by_row_ranges`), with the same bytes as one call. The
+  numpy fallbacks stay one pass on the caller's thread.
 
 ``FFS_TPU_AUTO_BUILD_NATIVE=0`` turns the build off, as in the reference:
 an existing build is still loaded, else every entry point runs in numpy.
@@ -26,9 +31,12 @@ import platform
 import shutil
 import subprocess
 import threading
-from typing import List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+
+from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -41,6 +49,16 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 _UNSET = object()
 _lib = _UNSET  # the loaded library, None without one; tests may set None
 _LOCK = threading.Lock()
+
+# A staging call is split only where each range holds at least this many
+# windows (one library call per range, on the staging pool). On an H100's
+# 8-core host, from a warm source into pinned memory, two ranges of 4,000
+# windows took as long as one call (377 against 373 µs: the pool's hand-off
+# eats the second core) and two of 8,000 took 15% less (634 against 748).
+# A 60-s segment (6,000 windows) and a streaming read (10,000) stay one
+# call; a 45-min chunk (270,000) takes every core.
+STAGE_SPLIT_WINDOWS = 8000
+_stage_pool = None  # (workers, executor or None), made at the first staging call
 
 
 def library_path() -> str:
@@ -139,6 +157,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _build_tables(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with its two µ-law tables built: the library builds each on
+    its first staging call, unguarded, so they are built here, once, before
+    two staging threads could race to."""
+    pcm, out = np.zeros(4, np.int16), np.zeros(4, np.int8)
+    lib.ffs_stage_i8(_ptr(pcm, ctypes.c_int16), 4, 0, 4, 4, 1, _ptr(out, ctypes.c_int8))
+    lib.ffs_stage_p6(_ptr(pcm, ctypes.c_int16), 4, 0, 4, 3, 1,
+                     _ptr(out.view(np.uint8), ctypes.c_uint8))
+    return lib
+
+
 def _get_lib():
     """The library (built and loaded once per process, whichever thread
     asks first), or None where it cannot be built."""
@@ -154,7 +183,7 @@ def _get_lib():
                 lib = None
                 if os.path.exists(path):
                     try:
-                        lib = _declare(ctypes.CDLL(path))
+                        lib = _build_tables(_declare(ctypes.CDLL(path)))
                     except (OSError, AttributeError) as e:  # pragma: no cover
                         logger.warning("failed to load native library: %s", e)
                 _lib = lib
@@ -250,6 +279,52 @@ def decimate2(pcm: np.ndarray) -> np.ndarray:
     return np.clip(acc >> 15, -32768, 32767).astype(np.int16)
 
 
+def _staging_pool():
+    """(workers, executor) that every staging call of the process shares:
+    one thread per core the process may run on, so that callers staging at
+    once (a batch's decode workers) queue on the same threads instead of
+    oversubscribing the host. No executor on a single core."""
+    global _stage_pool
+    if _stage_pool is None:
+        with _LOCK:
+            if _stage_pool is None:
+                workers = len(os.sched_getaffinity(0))
+                pool = ThreadPoolExecutor(workers, "ffs-stage") if workers > 1 else None
+                _stage_pool = (workers, pool)
+    return _stage_pool
+
+
+def _by_row_ranges(
+    call: Callable[[np.ndarray, np.ndarray], None], pcm: np.ndarray, window: int,
+    out: np.ndarray, splittable: bool,
+) -> np.ndarray:
+    """``call(samples, rows)`` over ``out``: once, on this thread, or, where
+    ``splittable`` and every range holds :data:`STAGE_SPLIT_WINDOWS`
+    windows, over one contiguous range of ``out``'s rows per core, each with
+    the samples of its own windows (``pcm[a * window:b * window]`` for rows
+    ``a:b``). Where each window's bytes depend on its own samples alone (no
+    decimation: the half-band filter reads across a range's edge), the
+    ranges write the bytes of the one call. ctypes drops the interpreter
+    lock for each call; this thread runs the first range itself. Counts
+    ``stage.calls`` and ``stage.ranges`` (:func:`tracing.counts`)."""
+    rows = out.shape[0]
+    workers, pool = _staging_pool()
+    k = min(workers, rows // STAGE_SPLIT_WINDOWS) if splittable else 1
+    tracing.count("stage.calls")
+    if k <= 1:
+        tracing.count("stage.ranges")
+        call(pcm, out)
+        return out
+    tracing.count("stage.ranges", k)
+    edges = [rows * i // k for i in range(k + 1)]
+    ranges = [(pcm[a * window:b * window], out[a:b]) for a, b in zip(edges, edges[1:])]
+    futures = [pool.submit(call, *r) for r in ranges[1:]]
+    call(*ranges[0])
+    for f in futures:
+        f.result()
+    return out
+
+
 def _output(out, shape, dtype) -> np.ndarray:
     """``out`` checked to hold the result (C-contiguous, its shape and
     dtype), or a new array when it is None."""
@@ -281,19 +356,19 @@ def stage_for_device(
     if pcm.dtype != np.int16:
         pcm = pcm.astype(np.int16)
     pcm = np.ascontiguousarray(pcm)
+    if decim_stages == 0:
+        # no filter: the plain µ-law framing, whose library call reads each
+        # sample straight through the table (``ffs_stage_i8`` widens each to
+        # int32 first) and splits over the cores: the same bytes
+        return frame_for_device(pcm[: t_pad * window], window, wpad, t_pad, mulaw=True, out=out)
     lib = _get_lib()
     if lib is not None:
+        def call(part, rows):
+            lib.ffs_stage_i8(_ptr(part, ctypes.c_int16), len(part), decim_stages, window,
+                             wpad, rows.shape[0], _ptr(rows, ctypes.c_int8))
+
         out = _output(out, (t_pad, wpad), np.int8)
-        lib.ffs_stage_i8(
-            _ptr(pcm, ctypes.c_int16),
-            len(pcm),
-            decim_stages,
-            window,
-            wpad,
-            t_pad,
-            _ptr(out, ctypes.c_int8),
-        )
-        return out
+        return _by_row_ranges(call, pcm, window, out, False)
     for _ in range(decim_stages):
         pcm = decimate2(pcm)
     # samples past t_pad windows are dropped, as the library drops them
@@ -338,17 +413,12 @@ def stage_for_device_p6(
     pcm = np.ascontiguousarray(pcm)
     lib = _get_lib()
     if lib is not None:
+        def call(part, rows):
+            lib.ffs_stage_p6(_ptr(part, ctypes.c_int16), len(part), decim_stages, window,
+                             row_bytes, rows.shape[0], _ptr(rows.view(np.uint8), ctypes.c_uint8))
+
         out = _output(out, (t_pad, row_bytes), np.int8)
-        lib.ffs_stage_p6(
-            _ptr(pcm, ctypes.c_int16),
-            len(pcm),
-            decim_stages,
-            window,
-            row_bytes,
-            t_pad,
-            _ptr(out.view(np.uint8), ctypes.c_uint8),
-        )
-        return out
+        return _by_row_ranges(call, pcm, window, out, decim_stages == 0)
     for _ in range(decim_stages):
         pcm = decimate2(pcm)
     pcm = pcm[: t_pad * window]  # clamped to t_pad windows, as in the library
@@ -375,16 +445,14 @@ def frame_for_device(
         framed = np.zeros((t_pad, wpad), dtype)
         framed[:, :window] = flat.reshape(t_pad, window)
         return _fill(out, framed)
+    fn = lib.ffs_mulaw_frame_i8 if mulaw else lib.ffs_frame_i16
+    elem = ctypes.c_int8 if mulaw else ctypes.c_int16
+
+    def call(part, rows):
+        fn(_ptr(part, ctypes.c_int16), len(part), window, wpad, rows.shape[0], _ptr(rows, elem))
+
     out = _output(out, (t_pad, wpad), np.int8 if mulaw else np.int16)
-    (lib.ffs_mulaw_frame_i8 if mulaw else lib.ffs_frame_i16)(
-        _ptr(pcm, ctypes.c_int16),
-        len(pcm),
-        window,
-        wpad,
-        t_pad,
-        _ptr(out, ctypes.c_int8 if mulaw else ctypes.c_int16),
-    )
-    return out
+    return _by_row_ranges(call, pcm, window, out, True)
 
 
 def tokenize(

@@ -105,8 +105,10 @@ def prepare_staged_input(
 ) -> Tuple[np.ndarray, int, int, int]:
     """Host staging for the frontend: decimate to the analysis rate,
     wire-encode (``FFS_TPU_WIRE``: ``mulaw`` default, ``mulaw6``, ``i16``)
-    and frame, one native pass where the host library is built, into
-    ``out`` where one is given (of the shape and dtype the result has).
+    and frame, one native pass where the host library is built (split by
+    window ranges over the host's cores where there is no decimation:
+    ``native._by_row_ranges``), into ``out`` where one is given (of the
+    shape and dtype the result has).
 
     Returns ``(framed [n_windows, width] np, analysis_rate, window,
     n_windows)``; the last window is zero-padded (wire silence).

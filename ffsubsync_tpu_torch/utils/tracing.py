@@ -25,9 +25,12 @@ context, and a profiler records on the thread that started it only, so a
 worker learns from its copied context that tracing is on).
 
 Spans are kept in one bounded store (:data:`LIMIT`); spans past the bound
-are counted in ``dropped`` and not kept. :func:`spans`, :func:`counts` and
-:func:`reset` read and clear the store that profiled runs fill;
-:func:`recording` gives its block a store of its own.
+are counted in ``dropped`` and not kept. :func:`count` adds to a named
+counter of the same store, on or off (``pcm_join.views``,
+``pcm_join.copies``, ``stage.calls``, ``stage.ranges``: dotted names, which
+no span takes). :func:`spans`, :func:`counts` and :func:`reset` read and
+clear the store that profiled runs fill; :func:`recording` gives its block
+a store of its own.
 """
 import array
 import contextlib
@@ -54,14 +57,16 @@ class Span(NamedTuple):
 
 class Store:
     """The spans kept (at most :data:`LIMIT`, as it reads when the store is
-    made), the count of each name closed, and the number of spans dropped
-    past the limit. The spans are kept as flat arrays, so that a kept span
-    adds no object for the garbage collector to walk; :attr:`spans` builds
-    the :class:`Span` tuples when first read."""
+    made), the count of each name closed, the counters of :func:`count`,
+    and the number of spans dropped past the limit. The spans are kept as
+    flat arrays, so that a kept span adds no object for the garbage
+    collector to walk; :attr:`spans` builds the :class:`Span` tuples when
+    first read."""
 
     def __init__(self) -> None:
         self.limit = LIMIT
         self.counts: Dict[str, int] = {}
+        self.counters: Dict[str, int] = {}
         self.dropped = 0
         self._names: List[str] = []
         self._ids = array.array("q")  # id, parent, request, thread (0: none)
@@ -200,6 +205,13 @@ def recording() -> Iterator[Store]:
             _store = saved
 
 
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name``, whether tracing is on or off."""
+    store = _store
+    with store._lock:
+        store.counters[name] = store.counters.get(name, 0) + n
+
+
 def spans() -> List[Span]:
     """The spans kept since the last :func:`reset` (or inside the open
     :func:`recording` block)."""
@@ -207,14 +219,15 @@ def spans() -> List[Span]:
 
 
 def counts() -> Dict[str, int]:
-    """The count of each span name since the last :func:`reset` (or inside
-    the open :func:`recording` block), the spans dropped past the bound, and
-    the kernel launch counters of ``ops/frontend`` and ``ops/scan`` (since
-    the process started)."""
+    """The count of each span name and each :func:`count` counter since the
+    last :func:`reset` (or inside the open :func:`recording` block), the
+    spans dropped past the bound, and the kernel launch counters of
+    ``ops/frontend`` and ``ops/scan`` (since the process started)."""
     from ffsubsync_tpu_torch.ops import frontend, scan
 
     with _store._lock:
         out = dict(_store.counts)
+        out.update(_store.counters)
         out["dropped"] = _store.dropped
     out["fused_frontend.launches"] = frontend.fused_frontend.launches
     out["scan.launches"] = scan.launches

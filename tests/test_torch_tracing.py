@@ -397,6 +397,23 @@ def test_counts_carry_the_launch_counters():
     assert got["scan.launches"] == scan.launches
 
 
+def test_counters_count_on_and_off_apart_from_the_span_counts():
+    tracing.reset()
+    tracing.count("x.calls")
+    tracing.count("x.calls", 2)
+    assert tracing.counts()["x.calls"] == 3
+    with tracing.recording() as rec:
+        tracing.count("x.calls")
+        with tracing.span("x"):
+            pass
+        got = tracing.counts()
+    assert rec.counts == {"x": 1} and rec.counters == {"x.calls": 1}
+    assert got["x"] == got["x.calls"] == 1
+    assert tracing.counts()["x.calls"] == 3
+    tracing.reset()
+    assert "x.calls" not in tracing.counts()
+
+
 def test_spanned_keeps_the_function():
     @tracing.spanned("work")
     def work(a, b=2):
