@@ -114,30 +114,43 @@ def has_trained_weights(rate: int) -> bool:
         return False
 
 
+def _box_sums(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Each centered ±k box's sum of a [..., T] series (zeros past its
+    ends), every box summed directly in one fixed order."""
+    return F.pad(x, (k, k)).unfold(-1, 2 * k + 1, 1).sum(dim=-1)
+
+
 def _box_mean(
     v: torch.Tensor, vm: torch.Tensor, k: int, nonneg: bool = False
 ) -> torch.Tensor:
     """Centered ±k box mean of a [..., T] series over its valid rows only.
 
+    On the CPU the box sums are differences of float32 prefix sums, as in
+    the reference. On CUDA each box is summed directly, in a fixed order:
+    ``torch.cumsum`` of a 1-D float series there is a single-pass scan
+    whose tiles take their predecessors' prefixes as timing allows, so its
+    rounding, and the labels with it, would differ from run to run.
+
     ``nonneg=True`` declares the input non-negative and clamps the result at
-    zero: the box sum is a difference of float32 prefix sums, and CUDA's
-    ``cumsum`` is a parallel scan whose rounding is not monotone, so over a
-    movie-length series ``s[hi+1] - s[lo]`` on a near-silent stretch can
-    come out slightly negative — ``sqrt`` of it is a NaN that the convs
-    smear into valid windows (the reference hit this on the TPU).
+    zero: a difference of prefix sums, ``s[hi+1] - s[lo]``, on a near-silent
+    stretch of a movie-length series can come out slightly negative, and
+    ``sqrt`` of it is a NaN that the convs smear into valid windows (the
+    reference hit this on the TPU).
     """
-    zero = torch.zeros(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
-    s = torch.cat([zero, torch.cumsum(v * vm, dim=-1)], dim=-1)
-    c = torch.cat([zero, torch.cumsum(vm, dim=-1)], dim=-1)
-    t = v.shape[-1]
-    i = torch.arange(t, device=v.device)
-    lo = torch.clamp(i - k, min=0)
-    hi = torch.clamp(i + k, max=t - 1)
-    num = s[..., hi + 1] - s[..., lo]
+    if v.is_cuda:
+        num, count = _box_sums(v * vm, k), _box_sums(vm, k)
+    else:
+        zero = torch.zeros(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
+        s = torch.cat([zero, torch.cumsum(v * vm, dim=-1)], dim=-1)
+        c = torch.cat([zero, torch.cumsum(vm, dim=-1)], dim=-1)
+        t = v.shape[-1]
+        i = torch.arange(t, device=v.device)
+        lo = torch.clamp(i - k, min=0)
+        hi = torch.clamp(i + k, max=t - 1)
+        num, count = s[..., hi + 1] - s[..., lo], c[..., hi + 1] - c[..., lo]
     if nonneg:
         num = torch.clamp(num, min=0.0)
-    den = torch.clamp(c[..., hi + 1] - c[..., lo], min=1.0)
-    return num / den
+    return num / torch.clamp(count, min=1.0)
 
 
 def _aux_channels(x: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
@@ -238,8 +251,10 @@ def load_net(rate: int, device: torch.device) -> NeuralVADNet:
 
     Missing or stale weights degrade to :func:`init_params` of a generator
     seeded 0, with a loud warning, as in the reference (the distributions
-    are the reference's; the numbers drawn differ).
+    are the reference's; the numbers drawn differ). Counted as
+    ``net_load.calls`` (:func:`tracing.counts`).
     """
+    tracing.count("net_load.calls")
     path = default_weights_path(rate)
     net = NeuralVADNet()
     expected = expected_param_shapes()

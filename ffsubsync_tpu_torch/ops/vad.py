@@ -323,6 +323,8 @@ def _vad_program(framed, window, frame_rate, n_valid, state,
         x = torch.where(mask, x, 0.0)
         with torch.no_grad(), tracing.span("net"):
             probs = net(x, valid_rows.to(x.dtype))[ctx:]
+        tracing.count("net.calls")
+        tracing.count("net.windows", int(x.shape[0]))  # the carried context's rows too
         silero_labels = 1.0 - (1.0 - probs) * (1.0 - non_speech_label)
         new["carry"] = feats[n_valid : n_valid + ctx]
         new["carry_len"] = min(carry_len + n_valid, ctx)

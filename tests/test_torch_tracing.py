@@ -15,6 +15,7 @@ import torch
 from ffsubsync_tpu_torch.batch import sync_batch
 from ffsubsync_tpu_torch.cli import make_parser
 from ffsubsync_tpu_torch.media import embedded
+from ffsubsync_tpu_torch.models.neural_vad import CONTEXT
 from ffsubsync_tpu_torch.models.synth_data import speech_signal_for_spans
 from ffsubsync_tpu_torch.sync import run
 from ffsubsync_tpu_torch.utils import tracing
@@ -189,6 +190,31 @@ def test_the_net_loads_under_fused_only(media, vad, loads):
     assert rec.counts.get("net", 0) == (rec.counts["vad_program"] if loads else 0)
     by_id = {s.id: s for s in rec.spans}
     assert all(by_id[s.parent].name == "detector" for s in rec.spans if s.name == "net_load")
+
+
+@pytest.mark.parametrize("kind, films", [("cli", 1), ("batch", 3), ("webrtc", 0)])
+def test_the_net_counters_count_calls_windows_and_loads(media, tmp_path, monkeypatch, kind,
+                                                        films):
+    """``net.calls`` and ``net.windows`` once per net call in
+    ``ops/vad._vad_program`` (the chunk's windows and the CONTEXT rows
+    carried before them), ``net_load.calls`` once per ``load_net``. The 67-s
+    WAV in 25-s pipeline chunks is one read, dispatched as 25 + 25 + 17 s:
+    3 calls over 6,700 windows a film. A batch loads the net once a job; the
+    default flags' webrtc sync counts none."""
+    monkeypatch.setenv("FFS_TPU_PIPELINE_SECONDS", "25")
+    if kind == "batch":
+        jobs = [(media["wav"], media["subs"][i % 2], str(tmp_path / ("f%d.srt" % i)))
+                for i in range(films)]
+        with tracing.recording() as rec:
+            results = sync_batch(jobs, vad="fused", decode_workers=2)
+        assert all(r["sync_was_successful"] for r in results), results
+    else:
+        rec = _recorded(media, flags=["--vad", "fused"] if kind == "cli" else [])
+    got = {k: rec.counters.get(k, 0) for k in ("net.calls", "net.windows", "net_load.calls")}
+    assert got == {"net.calls": 3 * films, "net.windows": films * (6700 + 3 * CONTEXT),
+                   "net_load.calls": films}
+    assert rec.counts.get("net", 0) == got["net.calls"]
+    assert rec.counts.get("net_load", 0) == got["net_load.calls"]
 
 
 def test_off_records_nothing_and_opens_no_range(media, monkeypatch):
