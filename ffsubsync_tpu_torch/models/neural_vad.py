@@ -13,7 +13,8 @@ they are ``nn.Conv1d`` (a SAME-padded cross-correlation is exactly what
 """
 import logging
 import os
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -245,19 +246,39 @@ def jax_layout(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: np.array(v.numpy(), dtype=np.float32, order="C") for k, v in d.items()}
 
 
-@tracing.spanned("net_load")
-def load_net(rate: int, device: torch.device) -> NeuralVADNet:
-    """The net with the shipped weights for an analysis rate, on ``device``.
+# The nets read in this process, by (weights path, that file's (st_mtime_ns,
+# st_size) or None, analysis rate, device): each eval-mode with no parameter
+# requiring grad, beside the warnings its read logged. The net's forward has
+# no buffers and no state, so one module serves every detector and thread.
+_nets: Dict[tuple, Tuple[NeuralVADNet, List[tuple]]] = {}
+_net_locks: Dict[tuple, threading.Lock] = {}
+_nets_lock = threading.Lock()
 
-    Missing or stale weights degrade to :func:`init_params` of a generator
-    seeded 0, with a loud warning, as in the reference (the distributions
-    are the reference's; the numbers drawn differ). Counted as
-    ``net_load.calls`` (:func:`tracing.counts`).
-    """
-    tracing.count("net_load.calls")
-    path = default_weights_path(rate)
+
+def _file_identity(path: str) -> Optional[Tuple[int, int]]:
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return st.st_mtime_ns, st.st_size
+
+
+def _device_key(device: torch.device) -> torch.device:
+    """``cuda`` and ``cuda:<current device>`` are one device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@tracing.spanned("net_read")
+def _read_net(path: str, device: torch.device) -> Tuple[NeuralVADNet, List[tuple]]:
+    """The net with the weights at ``path`` on ``device``, and the warnings
+    to log (each a logger's arguments). Counted as ``net_load.reads``."""
+    tracing.count("net_load.reads")
     net = NeuralVADNet()
     expected = expected_param_shapes()
+    warnings = []
     loaded = None
     if os.path.exists(path):
         with np.load(path) as f:
@@ -268,18 +289,60 @@ def load_net(rate: int, device: torch.device) -> NeuralVADNet:
             if not mismatched:
                 loaded = {k: f[k] for k in expected}
             else:
-                logger.warning(
+                warnings.append((
                     "neural VAD weights at %s predate the current "
                     "architecture (missing/mis-shaped: %s)", path, mismatched,
-                )
+                ))
     if loaded is None:
-        logger.warning(
+        warnings.append((
             "no usable neural VAD weights at %s; using deterministic random "
             "initialization (detection quality will be poor)", path,
-        )
+        ))
         loaded = init_params(torch.Generator().manual_seed(0))
     net.load_state_dict(params_from_numpy(loaded))
-    return net.to(device).eval()
+    return net.to(device).eval().requires_grad_(False), warnings
+
+
+@tracing.spanned("net_load")
+def load_net(rate: int, device: torch.device) -> NeuralVADNet:
+    """The net with the shipped weights for an analysis rate, on ``device``.
+
+    Missing or stale weights degrade to :func:`init_params` of a generator
+    seeded 0, with a loud warning on every call, as in the reference (the
+    distributions are the reference's; the numbers drawn differ).
+
+    The net is read once per process for each weights file (its path, its
+    ``st_mtime_ns`` and size, so a rewritten file is read again), rate and
+    device, and shared: it is in eval mode and no parameter requires grad,
+    so callers must not train or change it. Threads that ask at once for a
+    net not yet read wait for one read. Each call is an acquisition, the
+    span ``net_load`` and the counter ``net_load.calls``; a real read is
+    the span ``net_read`` inside it and the counter ``net_load.reads``
+    (:func:`tracing.counts`). :func:`clear_net_cache` forgets every net.
+    """
+    tracing.count("net_load.calls")
+    path = default_weights_path(rate)
+    device = _device_key(device)
+    key = (path, _file_identity(path), rate, device)
+    entry = _nets.get(key)
+    if entry is None:
+        with _nets_lock:
+            lock = _net_locks.setdefault(key, threading.Lock())
+        with lock:
+            entry = _nets.get(key)
+            if entry is None:
+                entry = _nets[key] = _read_net(path, device)
+    net, warnings = entry
+    for args in warnings:
+        logger.warning(*args)
+    return net
+
+
+def clear_net_cache() -> None:
+    """Forget every net :func:`load_net` read: the next call reads again."""
+    with _nets_lock:
+        _nets.clear()
+        _net_locks.clear()
 
 
 def probs_from_feats(

@@ -170,6 +170,7 @@ def train(args) -> TrainResult:
     )
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **neural_vad.params_to_numpy(net))
+    neural_vad.clear_net_cache()  # load_net reads this file anew, even at an unchanged mtime
     print("wrote", out)
     if args.steps:
         print("timing: %d steps in %.3f s; synth_batch %.3f ms per batch on the host "

@@ -27,10 +27,10 @@ worker learns from its copied context that tracing is on).
 Spans are kept in one bounded store (:data:`LIMIT`); spans past the bound
 are counted in ``dropped`` and not kept. :func:`count` adds to a named
 counter of the same store, on or off (``pcm_join.views``,
-``pcm_join.copies``, ``stage.calls``, ``stage.ranges``: dotted names, which
-no span takes). :func:`spans`, :func:`counts` and :func:`reset` read and
-clear the store that profiled runs fill; :func:`recording` gives its block
-a store of its own.
+``pcm_join.copies``, ``stage.calls``, ``stage.ranges``, ``net_load.calls``,
+``net_load.reads``: dotted names, which no span takes). :func:`spans`,
+:func:`counts` and :func:`reset` read and clear the store that profiled
+runs fill; :func:`recording` gives its block a store of its own.
 """
 import array
 import contextlib
