@@ -45,11 +45,9 @@ from ffsubsync_tpu_torch.constants import (
     DEFAULT_SEGMENT_COUNT,
     DEFAULT_START_SECONDS,
     DEFAULT_VAD,
-    FRAMERATE_RATIOS,
     SAMPLE_RATE,
     SUBTITLE_EXTENSIONS,
 )
-from ffsubsync_tpu_torch.subs.transforms import shift_document
 from ffsubsync_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
@@ -115,9 +113,10 @@ def sync_batch(
     """Sync every ``(reference, srtin, srtout)`` job; one batched search.
 
     ``srtout`` must be a path for every job. With ``gss``, the discrete
-    grid search is followed by batched grid-refinement rounds (the batch
-    form of ``sync._run_gss_search``). Extraction runs on the device
-    ``FFS_TORCH_DEVICE`` names (:mod:`ffsubsync_tpu_torch.device`); the
+    grid search is followed by batched grid-refinement rounds
+    (``sync.gss_search``, which the single-file sync runs for one job).
+    Extraction runs on the device ``FFS_TORCH_DEVICE`` names
+    (:mod:`ffsubsync_tpu_torch.device`); the
     search is split over ``mesh``, a sequence of devices (default: every
     local device of that kind). Returns one result dict per job:
     ``{reference, srtin, srtout, offset_seconds, framerate_scale_factor,
@@ -130,7 +129,13 @@ def sync_batch(
     """
     from ffsubsync_tpu_torch.speech import make_subtitle_speech_source
     from ffsubsync_tpu_torch.subs.parser import make_subtitle_parser
-    from ffsubsync_tpu_torch.sync import assess_alignment_quality
+    from ffsubsync_tpu_torch.sync import (
+        assess_alignment_quality,
+        best_eligible,
+        get_framerate_ratios_to_try,
+        gss_search,
+        synced_document,
+    )
     from ffsubsync_tpu_torch.parallel.batch import BatchAligner
 
     for reference, srtin, srtout in jobs:
@@ -172,9 +177,10 @@ def sync_batch(
                 results[i]["error"] = str(e)
 
     # --- candidate construction -------------------------------------------
-    ratios = [1.0]
-    if not no_fix_framerate:
-        ratios += list(FRAMERATE_RATIOS) + [1.0 / r for r in FRAMERATE_RATIOS]
+    framerate_ratios = get_framerate_ratios_to_try(
+        argparse.Namespace(no_fix_framerate=no_fix_framerate, gss=gss)
+    )
+    ratios = [1.0] + [r for r in framerate_ratios if r is not None]
     refs: List[Any] = []
     sources_per_job: List[List[Any]] = []
     makers_per_job: List[Any] = []  # ratio -> fitted source (gss rounds)
@@ -217,72 +223,34 @@ def sync_batch(
     if not live:
         return results
 
-    # --- one batched search scores every job's candidate set ---------------
+    # --- one batched search scores every job's candidate set; with --gss,
+    # one more per refinement round; the pool is grid, inferred, gss -------
     aligner = BatchAligner(mesh)
     max_offset_samples = abs(int(max_offset_seconds * SAMPLE_RATE))
-    all_alignments = aligner.align_batch(
-        refs, [[s.spec_ for s in srcs] for srcs in sources_per_job],
-        max_offset_samples=max_offset_samples,
-    )
 
-    if gss and not no_fix_framerate:
-        # per round, ONE search scores all jobs' 33-ratio grids; each job
-        # then narrows its own bracket around its argmax. The final round's
-        # candidates join that job's selection pool, as the single-file gss
-        # slot does.
-        from ffsubsync_tpu_torch.sync import (
-            GSS_TOL,
-            MAX_FRAMERATE_RATIO,
-            MIN_FRAMERATE_RATIO,
-            gss_grid,
-            gss_narrow,
-        )
+    def score(specs_per_job):
+        return aligner.align_batch(refs, specs_per_job, max_offset_samples=max_offset_samples)
 
-        brackets = [(MIN_FRAMERATE_RATIO, MAX_FRAMERATE_RATIO)] * len(live)
-        while True:
-            grids = [gss_grid(lo, hi) for lo, hi in brackets]
-            steps = [step for step, _ratios in grids]
-            round_ratios = [grid_ratios for _step, grid_ratios in grids]
-            round_sources = [
-                [makers_per_job[j](r) for r in grid_ratios]
-                for j, grid_ratios in enumerate(round_ratios)
-            ]
-            round_aligns = aligner.align_batch(
-                refs,
-                [[s.spec_ for s in srcs] for srcs in round_sources],
-                max_offset_samples=max_offset_samples,
-            )
-            if max(steps) <= GSS_TOL:
-                for j in range(len(live)):
-                    all_alignments[j] = list(all_alignments[j]) + list(round_aligns[j])
-                    sources_per_job[j] = list(sources_per_job[j]) + list(round_sources[j])
-                break
-            brackets = [
-                gss_narrow(
-                    round_ratios[j], steps[j],
-                    int(np.argmax([a.score for a in round_aligns[j]])),
-                )
-                for j in range(len(live))
-            ]
+    pools = [
+        list(zip(aligns, srcs))
+        for aligns, srcs in zip(score([[s.spec_ for s in srcs] for srcs in sources_per_job]),
+                                sources_per_job)
+    ]
+    if None in framerate_ratios:
+        for pool, last_round in zip(pools, gss_search(makers_per_job, score)):
+            pool.extend(last_round)
 
     # --- per-job selection + output ----------------------------------------
     for j, i in enumerate(live):
         try:
-            eligible = [
-                (a, s)
-                for a, s in zip(all_alignments[j], sources_per_job[j])
-                if abs(a.offset) <= max_offset_samples
-            ]
-            if not eligible:
+            chosen = best_eligible(pools[j], max_offset_samples)
+            if chosen is None:
                 raise RuntimeError("no alignment within +/-%s s" % max_offset_seconds)
-            best, best_source = max(eligible, key=lambda x: x[0].score)
+            best, best_source = chosen
             offset_seconds = best.offset / float(SAMPLE_RATE)
             srtout = jobs[i][2]
             with tracing.span("write"):
-                out_subs = shift_document(best_source.scaled_doc_, offset_seconds)
-                if output_encoding != "same":
-                    out_subs = out_subs.set_encoding(output_encoding)
-                out_subs.write_file(srtout)
+                synced_document(best_source, offset_seconds, output_encoding).write_file(srtout)
             # flag (but still write) syncs the single-file quality gate would
             # reject, so "re-run ffs on the stragglers" is actionable
             quality_reasons = assess_alignment_quality(

@@ -12,7 +12,7 @@ VAD (``parallel/vad_shard.py``) and the batch search
 (``parallel/batch.py``) spread their work over it.
 """
 import os
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,15 @@ def local_mesh(device: torch.device) -> Tuple[torch.device, ...]:
     if device.type == "cuda":
         return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
     return (torch.device("cpu"),)
+
+
+def mesh_groups(n: int, mesh: Sequence[torch.device]) -> List[Tuple[int, torch.device, slice]]:
+    """(slot, device, contiguous index range) of each slot of ``mesh`` that
+    gets some of ``n`` items, split as ``np.array_split`` splits them: the
+    first ``n % len(mesh)`` groups one item longer."""
+    return [(i, dev, slice(g[0], g[-1] + 1))
+            for i, (dev, g) in enumerate(zip(mesh, np.array_split(np.arange(n), len(mesh))))
+            if len(g)]
 
 
 def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:

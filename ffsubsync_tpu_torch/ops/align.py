@@ -5,7 +5,7 @@
 Offset conventions, the ``(-max, max]`` window, the descending-offset
 tie-break and the exact rescore are the reference's. The host half below
 (``Alignment`` through ``_ref_length``) is a verbatim copy of the JAX
-package's host code; :func:`align_candidates` and the device branch of
+package's host code; :func:`_score_on_mesh` and the device branch of
 :func:`align_signal_pair` send the device half to
 :mod:`ffsubsync_tpu_torch.ops.align_device`.
 """
@@ -174,8 +174,6 @@ def align_candidates(
     LazySpeechSignal`'s own), or on ``device``. Raises
     :class:`FailedToFindAlignmentException` when either side is empty.
     """
-    from ffsubsync_tpu_torch.ops import align_device
-
     n_ref = _ref_length(ref)
     if n_ref == 0 or any(c.n_samples == 0 for c in candidates):
         bad = min((c.n_samples for c in candidates), default=0)
@@ -187,21 +185,53 @@ def align_candidates(
         )
     if not candidates:
         return []
-    n = next_pow2(n_ref + max(c.n_samples for c in candidates))
     if _resolve_host_align(prefer_host):
+        n = next_pow2(n_ref + max(c.n_samples for c in candidates))
         return _align_candidates_host(ref, candidates, max_offset_samples, n)
     if hasattr(ref, "padded_values") and ref.device is not None:
         device = ref.device  # labels already on their device
     if device is None:
         raise ValueError("align_candidates: no device for the device path")
-    *arrays, n_offsets = pack_candidates([candidates], n, max_offset_samples)
-    ref_pm = align_device.prepare_ref_pm(ref, n, device)
-    scores, offsets = align_device.align_specs(
-        ref_pm[None], *(torch.from_numpy(a).to(device) for a in arrays), n, n_offsets
-    )
+    return _score_on_mesh([ref], [candidates], max_offset_samples, (device,))[0]
+
+
+def _score_on_mesh(
+    refs: Sequence,
+    candidates_per_ref: Sequence[Sequence[RasterSpec]],
+    max_offset_samples: Optional[int],
+    mesh: Sequence[torch.device],
+) -> List[List[Alignment]]:
+    """The device search of every reference's candidate set, behind its two
+    traced entries: :func:`align_candidates` (one reference, on its device)
+    and ``parallel.batch.BatchAligner.align_batch`` (a batch over a mesh).
+
+    Shapes are padded batch-wide, as in the reference, so a job's result
+    does not depend on the mesh. Each contiguous group of references
+    (:func:`~ffsubsync_tpu_torch.device.mesh_groups`) is one
+    :func:`~ffsubsync_tpu_torch.ops.align_device.align_specs` call on its
+    device, and every group is launched before any result is read, so
+    distinct GPUs score theirs at the same time. A lazy reference is padded
+    on its own device, so no label crosses to the host, then moved to its
+    group's; a host reference is copied there once."""
+    from ffsubsync_tpu_torch.device import mesh_groups
+    from ffsubsync_tpu_torch.ops import align_device
+
+    max_sub = max(spec.n_samples for cands in candidates_per_ref for spec in cands)
+    n = next_pow2(max(_ref_length(r) for r in refs) + max_sub)
+    *arrays, n_offsets = pack_candidates(candidates_per_ref, n, max_offset_samples)
+    launched = []
+    for _slot, dev, part in mesh_groups(len(refs), mesh):
+        ref_pm = torch.stack([align_device.prepare_ref_pm(r, n, dev).to(dev) for r in refs[part]])
+        launched.append(align_device.align_specs(
+            ref_pm, *(torch.from_numpy(a[part]).to(dev) for a in arrays), n, n_offsets
+        ))
     with tracing.span("label_wait"):
-        scores, offsets = scores[0].cpu().tolist(), offsets[0].cpu().tolist()
-    return [Alignment(float(s), int(o)) for s, o in zip(scores, offsets)]
+        scores = np.concatenate([s.cpu().numpy() for s, _o in launched])
+        offsets = np.concatenate([o.cpu().numpy() for _s, o in launched])
+    return [
+        [Alignment(float(scores[i, j]), int(offsets[i, j])) for j in range(len(cands))]
+        for i, cands in enumerate(candidates_per_ref)
+    ]
 
 
 def pack_candidates(

@@ -19,7 +19,7 @@ import logging
 import os
 import subprocess
 import sys
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -166,38 +166,61 @@ def gss_narrow(ratios: List[float], step: float, best_i: int) -> Tuple[float, fl
     )
 
 
-def _run_gss_search(
-    ref_sig: Any,
-    source_maker: Callable[[Optional[float]], Any],
-    srtin: Optional[str],
-    max_offset_samples: Optional[int],
-    prefer_host: bool = False,
-    device=None,
-) -> List[Tuple[Alignment, SubtitleSpeechSource]]:
-    """Batched grid refinement of the framerate ratio: each round scores a
-    33-ratio grid in one search and narrows the bracket around the argmax
-    until the step is below ``GSS_TOL``; every candidate of the last round
-    enters the cross-candidate selection (``ffsubsync_tpu`` ``sync.py``)."""
-    lo, hi = MIN_FRAMERATE_RATIO, MAX_FRAMERATE_RATIO
+def gss_search(
+    makers: Sequence[Callable[[float], Any]],
+    score: Callable[[List[List[Any]]], List[List[Alignment]]],
+) -> List[List[Tuple[Alignment, SubtitleSpeechSource]]]:
+    """Batched grid refinement of each job's framerate ratio, for the
+    single-file sync (one job) and the batch sync alike.
+
+    ``makers[j]`` builds job ``j``'s fitted candidate source for a ratio;
+    ``score`` takes every job's candidate specs and returns their
+    alignments in one search. Each round scores every job's 33-ratio grid
+    in one ``score`` call and narrows each job's bracket around its argmax,
+    until every job's step is at most ``GSS_TOL``. Returns each job's last
+    round, which enters its cross-candidate selection (``ffsubsync_tpu``
+    ``sync.py``)."""
+    brackets = [(MIN_FRAMERATE_RATIO, MAX_FRAMERATE_RATIO)] * len(makers)
     while True:
-        step, ratios = gss_grid(lo, hi)
-        sources = [source_maker(r).fit(srtin) for r in ratios]
-        alignments = align_candidates(
-            ref_sig,
-            [s.spec_ for s in sources],
-            max_offset_samples=max_offset_samples,
-            prefer_host=prefer_host,
-            device=device,
-        )
-        best_i = int(np.argmax([a.score for a in alignments]))
-        logger.info(
-            "gss grid [%.5f, %.5f]: best ratio %.5f (score %.0f, offset %d)",
-            lo, hi, ratios[best_i], alignments[best_i].score,
-            alignments[best_i].offset,
-        )
-        if step <= GSS_TOL:
-            return list(zip(alignments, sources))
-        lo, hi = gss_narrow(ratios, step, best_i)
+        grids = [gss_grid(lo, hi) for lo, hi in brackets]
+        sources = [[make(r) for r in ratios] for make, (_step, ratios) in zip(makers, grids)]
+        alignments = score([[s.spec_ for s in srcs] for srcs in sources])
+        best = [int(np.argmax([a.score for a in aligns])) for aligns in alignments]
+        for (lo, hi), (_step, ratios), aligns, i in zip(brackets, grids, alignments, best):
+            logger.info(
+                "gss grid [%.5f, %.5f]: best ratio %.5f (score %.0f, offset %d)",
+                lo, hi, ratios[i], aligns[i].score, aligns[i].offset,
+            )
+        if max(step for step, _ratios in grids) <= GSS_TOL:
+            return [list(zip(aligns, srcs)) for aligns, srcs in zip(alignments, sources)]
+        brackets = [gss_narrow(ratios, step, i) for (step, ratios), i in zip(grids, best)]
+
+
+def best_eligible(
+    scored: Sequence[Tuple[Alignment, Any]], max_offset_samples: int
+) -> Optional[Tuple[Alignment, Any]]:
+    """The first ``(Alignment, source)`` pair of the highest score among
+    those whose ``|offset|`` is at most ``max_offset_samples``; None if no
+    pair is."""
+    eligible = [(a, s) for a, s in scored if abs(a.offset) <= max_offset_samples]
+    return max(eligible, key=lambda x: x[0].score) if eligible else None
+
+
+def synced_document(
+    source: SubtitleSpeechSource,
+    offset_seconds: float,
+    output_encoding: str,
+    reference_doc: Optional[Any] = None,
+) -> Any:
+    """``source``'s scaled document shifted by ``offset_seconds``, merged
+    after ``reference_doc`` when one is given, and in ``output_encoding``
+    unless that is ``"same"``."""
+    out_subs = shift_document(source.scaled_doc_, offset_seconds)
+    if reference_doc is not None:
+        out_subs = merge_documents(out_subs, reference_doc, first="reference")
+    if output_encoding != "same":
+        out_subs = out_subs.set_encoding(output_encoding)
+    return out_subs
 
 
 def try_sync(
@@ -269,24 +292,24 @@ def try_sync(
                     zip(alignments[: len(sources)], sources)
                 )
                 if has_gss:
-                    scored.extend(
-                        _run_gss_search(
-                            ref_sig, source_maker, srtin, max_offset_samples,
+                    (last_round,) = gss_search(
+                        [lambda r: source_maker(r).fit(srtin)],
+                        lambda specs: [align_candidates(
+                            ref_sig, specs[0], max_offset_samples=max_offset_samples,
                             prefer_host=prefer_host, device=device,
-                        )
+                        )],
                     )
+                    scored.extend(last_round)
                 if inferred_source is not None:
                     scored.append((alignments[-1], inferred_source))
-                eligible = [
-                    (a, s) for a, s in scored if abs(a.offset) <= max_offset_samples
-                ]
-                if len(eligible) == 0:
+                best = best_eligible(scored, max_offset_samples)
+                if best is None:
                     raise FailedToFindAlignmentException(
                         "Synchronization failed; consider passing "
                         "--max-offset-seconds with a number larger than "
                         "{}".format(args.max_offset_seconds)
                     )
-                best_alignment, best_source = max(eligible, key=lambda x: x[0].score)
+                best_alignment, best_source = best
                 best_score = best_alignment.score
                 offset_samples = best_alignment.offset
             if best_score < 0:
@@ -326,13 +349,10 @@ def try_sync(
                     out_subs.write_file(srtout)
                 continue
             with tracing.span("write"):
-                out_subs = shift_document(best_source.scaled_doc_, offset_seconds)
-                if args.merge_with_reference:
-                    out_subs = merge_documents(
-                        out_subs, ref_extractor.parsed_doc_, first="reference"
-                    )
-                if args.output_encoding != "same":
-                    out_subs = out_subs.set_encoding(args.output_encoding)
+                out_subs = synced_document(
+                    best_source, offset_seconds, args.output_encoding,
+                    ref_extractor.parsed_doc_ if args.merge_with_reference else None,
+                )
                 suppress_output_thresh = args.suppress_output_if_offset_less_than
                 if offset_seconds >= (suppress_output_thresh or float("-inf")):
                     logger.info("writing output to %s", srtout or "stdout")

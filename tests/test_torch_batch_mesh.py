@@ -46,16 +46,16 @@ def test_mesh_search_equals_one_device(mesh_size):
 def test_mesh_groups_are_contiguous(monkeypatch):
     """7 jobs over 3 devices: one stacked call per device, of 3, 2 and 2
     consecutive jobs."""
-    import ffsubsync_tpu_torch.parallel.batch as pbatch
+    from ffsubsync_tpu_torch.ops import align_device
 
     seen = []
-    real = pbatch.align_specs
+    real = align_device.align_specs
 
     def recording(ref_pm, *args):
         seen.append(ref_pm.shape[0])
         return real(ref_pm, *args)
 
-    monkeypatch.setattr(pbatch, "align_specs", recording)
+    monkeypatch.setattr(align_device, "align_specs", recording)
     refs, cands = _random_case(np.random.RandomState(3), 7)
     out = BatchAligner([CPU] * 3).align_batch(refs, cands)
     assert seen == [3, 2, 2]
