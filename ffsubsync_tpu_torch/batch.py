@@ -127,7 +127,7 @@ def sync_batch(
     reference-extraction settings (pgs_ref_stream, multi_segment_sync,
     segment_count, start_seconds, ...) to ``make_reference_extractor``.
     """
-    from ffsubsync_tpu_torch.speech import make_subtitle_speech_source
+    from ffsubsync_tpu_torch.ops.cues import CandidateSource
     from ffsubsync_tpu_torch.subs.parser import make_subtitle_parser
     from ffsubsync_tpu_torch.sync import (
         assess_alignment_quality,
@@ -196,7 +196,7 @@ def sync_batch(
             # maker after the loop, and a late-binding closure would build
             # every job's sources from the LAST job's subtitle file
             def maker(r, fmt=fmt, parser=parser, srtin=srtin):
-                return make_subtitle_speech_source(r, fmt=fmt, parser=parser).fit(srtin)
+                return CandidateSource(fmt=fmt, scale_factor=r, parser=parser).fit(srtin)
 
             sub_sources = [maker(r) for r in ratios]
             ref_nf = getattr(ref_sources[i], "num_frames", None)

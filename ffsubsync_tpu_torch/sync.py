@@ -10,8 +10,11 @@ run through this port's
 :class:`~ffsubsync_tpu_torch.media.audio.VideoSpeechSource` on the device
 that ``FFS_TORCH_DEVICE`` names (resolved once, in
 :func:`make_reference_extractor`), and candidates are scored by this port's
-:func:`~ffsubsync_tpu_torch.ops.align.align_candidates`. Subtitle, ``.npz``
-and PGS references stay on the host, as in the reference.
+:func:`~ffsubsync_tpu_torch.ops.align.align_candidates`, and a subtitle
+file's candidate ratios are this port's
+:class:`~ffsubsync_tpu_torch.ops.cues.CandidateSource` (one document's cue
+arrays serve every ratio). Subtitle, ``.npz`` and PGS references stay on
+the host, as in the reference.
 """
 import argparse
 import contextlib
@@ -37,6 +40,7 @@ from ffsubsync_tpu_torch.ops.align import (
     FailedToFindAlignmentException,
     align_candidates,
 )
+from ffsubsync_tpu_torch.ops.cues import CandidateSource
 from ffsubsync_tpu_torch.speech import (
     DeserializeSpeechSource,
     SubtitleSpeechSource,
@@ -244,7 +248,13 @@ def try_sync(
                 args.skip_infer_framerate_ratio or ref_extractor is None
             )
             srtout = _resolve_srtout(args, srtin)
-            source_maker = get_srt_source_maker(args, srtin)
+            pinned_maker = get_srt_source_maker(args, srtin)
+
+            # every ratio on the maker's one caching parser: one parse and
+            # one set of cue arrays for all of this file's candidates
+            def source_maker(ratio: float) -> CandidateSource:
+                return CandidateSource.of(pinned_maker(ratio))
+
             framerate_ratios = get_framerate_ratios_to_try(args)
             has_gss = any(r is None for r in framerate_ratios)
             grid_ratios = [1.0] + [r for r in framerate_ratios if r is not None]
